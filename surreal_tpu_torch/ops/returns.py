@@ -1,0 +1,45 @@
+"""Return / advantage computations along the time axis (port of
+surreal_tpu/ops/returns.py). All arrays are time-major (T, ...)."""
+
+from __future__ import annotations
+
+import torch
+
+from surreal_tpu_torch.ops import gae_kernel
+
+Tensor = torch.Tensor
+
+
+def discounted_reverse_scan(x: Tensor, coef: Tensor) -> Tensor:
+    """Solves y_t = x_t + coef_t·y_{t+1} with y_T = 0, sequentially along
+    axis 0 (the reference's `associative=False` form)."""
+    ys = torch.empty_like(x)
+    carry = torch.zeros_like(x[-1])
+    for t in reversed(range(x.shape[0])):
+        carry = x[t] + coef[t] * carry
+        ys[t] = carry
+    return ys
+
+
+def gae_plain(rewards: Tensor, values: Tensor, next_values: Tensor, discounts: Tensor,
+              dones: Tensor, gamma: float, lam: float) -> tuple[Tensor, Tensor]:
+    """delta = r + γ·disc·V' − V; A_t = delta_t + γλ·disc_t·(1 − done_t)·A_{t+1};
+    returns (A, A + V). The plain version of the kernel in `gae_kernel`."""
+    dones_f = dones.to(values.dtype)
+    delta = rewards + gamma * discounts * next_values - values
+    coef = gamma * lam * discounts * (1.0 - dones_f)
+    adv = discounted_reverse_scan(delta, coef)
+    return adv, adv + values
+
+
+def gae(rewards: Tensor, values: Tensor, next_values: Tensor, discounts: Tensor,
+        dones: Tensor, gamma: float, lam: float) -> tuple[Tensor, Tensor]:
+    """Generalized Advantage Estimation with the truncation bootstrap:
+    next_values at `done` is the terminal obs value, discounts are 0 only on
+    true termination. Returns (advantages, value_targets = A + V).
+
+    CUDA tensors go through the fused kernel (`gae_kernel.gae_cuda`), CPU
+    tensors through `gae_plain`."""
+    if rewards.device.type == "cpu":
+        return gae_plain(rewards, values, next_values, discounts, dones, gamma, lam)
+    return gae_kernel.gae_cuda(rewards, values, next_values, discounts, dones, gamma, lam)

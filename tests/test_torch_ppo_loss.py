@@ -1,0 +1,162 @@
+"""Port fused PPO loss (plain forward and closed-form backward, the CPU side
+of `ops/ppo_loss_kernel.py`) against the JAX reference: the Pallas kernel
+`fused_clip_loss` in interpret mode and `ppo._loss_fn` under `jax.grad`.
+Batch recipe of tests/test_pallas_ppo_loss.py at N=512. Tolerances: rtol
+1e-5 for values (means of 512 float32 terms summed in another order),
+atol 1e-6 for gradients (per-row values of size ~1/N)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from surreal_tpu.algos import ppo as jppo
+from surreal_tpu.models.distributions import DiagGauss as JGauss
+from surreal_tpu.ops import pallas_ppo_loss
+from surreal_tpu_torch.algos import ppo as tppo
+from surreal_tpu_torch.ops import ppo_loss_kernel as plk
+
+RTOL, ATOL_GRAD = 1e-5, 1e-6
+KEYS = ("mean", "log_std", "value", "action", "logp_old", "mean_old", "log_std_old",
+        "adv", "vtarg", "v_old")
+
+
+def make_batch(seed, ties=False):
+    rs = np.random.RandomState(seed)
+    N, A = 512, 6
+    f = lambda *s: rs.randn(*s).astype(np.float32)  # noqa: E731
+    mean, value, action = f(N, A), f(N), f(N, A)
+    log_std = f(A) * 0.3
+    mean_old = mean + 0.1 * f(N, A)
+    log_std_old = log_std + np.float32(0.05)
+    adv, vtarg, v_old = f(N), f(N), value + 0.1 * f(N)
+    if ties:
+        # value error ties: v - v_old is exactly ±clip_eps, so the clipped
+        # and raw errors are equal; and rows with adv = 0, where the
+        # clipped and unclipped surrogates are equal.
+        rows = np.arange(0, N, 4)
+        v_old[rows] = 0.0
+        value[rows] = np.where(rs.rand(len(rows)) < 0.5, np.float32(0.2), np.float32(-0.2))
+        adv[np.arange(1, N, 4)] = 0.0
+    logp_old = np.asarray(JGauss.log_prob(mean_old, log_std_old, action))
+    return dict(mean=mean, log_std=log_std, value=value, action=action, logp_old=logp_old,
+                mean_old=mean_old, log_std_old=log_std_old, adv=adv, vtarg=vtarg, v_old=v_old)
+
+
+def jax_fused(b, cfg):
+    def fn(m, ls, v):
+        return pallas_ppo_loss.fused_clip_loss(
+            m, ls, v, *(b[k] for k in KEYS[3:]), clip_eps=cfg.clip_eps,
+            value_coef=cfg.value_coef, entropy_coef=cfg.entropy_coef, interpret=True)
+    return fn
+
+
+def jax_ref(b, cfg):
+    batch = (None, b["action"], b["logp_old"], b["mean_old"],
+             jnp.broadcast_to(b["log_std_old"], b["mean"].shape), b["adv"], b["vtarg"],
+             b["v_old"])
+
+    def fn(m, ls, v):
+        return jppo._loss_fn(cfg, lambda p, o: (m, ls, v), None, batch, jnp.float32(1.0),
+                             jnp.float32(cfg.entropy_coef))
+    return fn
+
+
+def port_fused(b, cfg):
+    t = {k: torch.tensor(v) for k, v in b.items()}
+    leaves = [t[k].requires_grad_() for k in ("mean", "log_std", "value")]
+    loss, metrics = plk.fused_clip_loss(
+        *leaves, *(t[k] for k in KEYS[3:]), clip_eps=cfg.clip_eps,
+        value_coef=cfg.value_coef, entropy_coef=cfg.entropy_coef)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss, metrics, grads
+
+
+def _check(loss_j, met_j, grads_j, loss_t, met_t, grads_t):
+    np.testing.assert_allclose(float(loss_j), float(loss_t), rtol=RTOL, atol=1e-7)
+    for k in met_j:
+        np.testing.assert_allclose(float(met_j[k]), float(met_t[k]), rtol=RTOL, atol=1e-7,
+                                   err_msg=k)
+    for name, a, b in zip(("dmean", "dlog_std", "dvalue"), grads_j, grads_t):
+        np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=0, atol=ATOL_GRAD,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("entropy_coef", [0.0, 0.01])
+@pytest.mark.parametrize("ties", [False, True])
+def test_fused_matches_pallas_kernel_interpret(entropy_coef, ties):
+    cfg = jppo.PPOConfig(entropy_coef=entropy_coef)
+    b = make_batch(0, ties)
+    fn = jax_fused(b, cfg)
+    args = (b["mean"], b["log_std"], b["value"])
+    loss_j, met_j = fn(*args)
+    grads_j = jax.grad(lambda *a: fn(*a)[0], argnums=(0, 1, 2))(*args)
+    _check(loss_j, met_j, grads_j, *port_fused(b, cfg))
+
+
+@pytest.mark.parametrize("entropy_coef", [0.0, 0.01])
+def test_fused_matches_reference_autodiff(entropy_coef):
+    """Without ties the closed-form backward equals autodiff of _loss_fn."""
+    cfg = jppo.PPOConfig(entropy_coef=entropy_coef)
+    b = make_batch(1)
+    fn = jax_ref(b, cfg)
+    args = (b["mean"], b["log_std"], b["value"])
+    loss_j, met_j = fn(*args)
+    grads_j = jax.grad(lambda *a: fn(*a)[0], argnums=(0, 1, 2))(*args)
+    _check(loss_j, met_j, grads_j, *port_fused(b, cfg))
+
+
+@pytest.mark.parametrize("objective", ["clip", "adaptive_kl"])
+def test_plain_loss_fn_matches_reference(objective):
+    """The port's unfused `_loss_fn` and torch autograd against the
+    reference's `_loss_fn` and jax.grad."""
+    jcfg = jppo.PPOConfig(objective=objective, entropy_coef=0.01)
+    tcfg = tppo.PPOConfig(objective=objective, entropy_coef=0.01)
+    b = make_batch(2)
+    fn = jax_ref(b, jcfg)
+    args = (b["mean"], b["log_std"], b["value"])
+    loss_j, met_j = fn(*args)
+    grads_j = jax.grad(lambda *a: fn(*a)[0], argnums=(0, 1, 2))(*args)
+    t = {k: torch.tensor(v) for k, v in b.items()}
+    leaves = [t[k].requires_grad_() for k in ("mean", "log_std", "value")]
+    batch = (None, t["action"], t["logp_old"], t["mean_old"],
+             t["log_std_old"].expand_as(t["mean"]), t["adv"], t["vtarg"], t["v_old"])
+    loss_t, met_t = tppo._loss_fn(tcfg, lambda o: tuple(leaves), batch,
+                                  torch.tensor(1.0), 0.01)
+    grads_t = torch.autograd.grad(loss_t, leaves)
+    _check(loss_j, met_j, grads_j, loss_t, met_t, grads_t)
+
+
+def test_gate_dispatches_fused(monkeypatch):
+    """cfg.fused_loss routes _loss_fn through the fused function exactly when
+    the reference's predicate admits (clip objective, no anneal, N % 256 == 0)."""
+    calls = []
+    orig = plk.fused_clip_loss
+    monkeypatch.setattr(plk, "fused_clip_loss", lambda *a, **k: calls.append(1) or orig(*a, **k))
+    b = {k: torch.tensor(v) for k, v in make_batch(3).items()}
+    batch = (None, b["action"], b["logp_old"], b["mean_old"], b["log_std_old"], b["adv"],
+             b["vtarg"], b["v_old"])
+    net = lambda o: (b["mean"], b["log_std"], b["value"])  # noqa: E731
+    cases = [
+        (tppo.PPOConfig(fused_loss=True), 512, 1),
+        (tppo.PPOConfig(fused_loss=False), 512, 0),
+        (tppo.PPOConfig(fused_loss=True, objective="adaptive_kl"), 512, 0),
+        (tppo.PPOConfig(fused_loss=True, entropy_final=0.0, entropy_anneal_iters=5), 512, 0),
+        (tppo.PPOConfig(fused_loss=True), 384, 0),
+    ]
+    for cfg, n, want in cases:
+        calls.clear()
+        sub = tuple(x if x is None else x[:n] for x in batch)
+        sub_net = lambda o, n=n: tuple(x[:n] if x.dim() and x.shape[0] == 512 else x  # noqa: E731
+                                       for x in net(o))
+        loss, _ = tppo._loss_fn(cfg, sub_net, sub, torch.tensor(1.0), cfg.entropy_coef)
+        assert len(calls) == want, (cfg, n)
+        assert torch.isfinite(loss)
+
+
+def test_kernel_wrappers_reject_cpu_tensors():
+    b = {k: torch.tensor(v) for k, v in make_batch(4).items()}
+    args = [b[k] for k in KEYS]
+    with pytest.raises(ValueError, match="CUDA"):
+        plk._kernel_args(*args)
