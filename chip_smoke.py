@@ -1,12 +1,16 @@
 """Drives the PyTorch port on one CUDA card and checks it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --loss-timing [ROOT]
+    python3 chip_smoke.py --loss-sweep
 
 Phases, each of which exits non-zero on failure:
   1. prints the card (nvidia-smi name, power limit) and the torch version;
-  2. builds the CUDA C++ kernels from surreal_tpu_torch/ops/csrc with nvcc;
+  2. builds the CUDA C++ kernels from surreal_tpu_torch/ops/csrc with nvcc
+     and prints ptxas's registers, shared memory and spills for ppo_loss.cu;
   3. runs each kernel at the main path's shapes against its plain PyTorch
-     version on the card, and times both with CUDA events;
+     version on the card, and times both with CUDA events; times the fused
+     loss's forward and backward as autograd runs them;
   4. checks the slice on a small input: one PPO update on the card (kernels)
      against the same update on the CPU (plain versions), and one batched
      cheetah env step on the card against the CPU;
@@ -15,18 +19,32 @@ Phases, each of which exits non-zero on failure:
      fused loss), for 1 warm-up and 3 timed iterations, and checks from the
      launch counters that every iteration launched the GAE kernel once and
      the loss forward and backward kernels 32 times each; then times one
-     more iteration split into rollout and update, and profiles another for
-     the device's idle share.
+     more iteration split into rollout and update, profiles another for
+     the device's idle share, and profiles one minibatch step of the
+     update for its loss kernels (2: one forward, one backward) and a
+     forward and a backward of fused_clip_loss (one device kernel each).
+     torch.profiler stays attached to the process once used and slows every
+     later launch, so nothing is timed after it.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
+
+With --loss-timing, only phase 1 and the autograd timing of phase 3 run,
+on the surreal_tpu_torch package under ROOT (default: this checkout), so
+two versions of the package can be timed in turns in one run on one card.
+With --loss-sweep, phase 1 runs, then the loss kernels are rebuilt from
+ppo_loss.cu at other cluster sizes and block widths and timed beside the
+committed ones and beside empty kernels (the launch's floor), twice each.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -37,11 +55,11 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # transcendental, a compare or a select counts as one): GAE per element,
 # the loss forward and backward per row at A action dims.
 GAE_OPS_PER_ELEM = 9
-LOSS_FWD_OPS_PER_ROW = (23, 28)  # 23·A + 28
-LOSS_BWD_OPS_PER_ROW = (17, 29)  # 17·A + 29
+LOSS_FWD_OPS_PER_ROW = (23, 29)  # 23·A + 29
+LOSS_BWD_OPS_PER_ROW = (22, 40)  # 22·A + 40, the shared log_std's row sum included
 TOL_GAE = 1e-4  # fp contraction and the γλ product round differently; 128-step scan
-TOL_LOSS_FWD = 1e-5  # 5 means of O(1) terms; 4096-term sums in another order
-TOL_LOSS_BWD = 1e-6  # per-row gradients of size ~1e-4 (they carry 1/N)
+TOL_LOSS_FWD = 1e-5  # the loss and 5 means of O(1) terms; 4096-term sums in another order
+TOL_LOSS_BWD = 1e-6  # per-row gradients of size ~1e-4 (they carry 1/N), and their row sum
 # The env step on the card against the CPU: sinf/cosf in FK differ by a few
 # ulps between the two, and 20 Jacobi sweeps amplify that by the Delassus
 # operator's conditioning. A contact is active iff its depth is > 0, so
@@ -117,6 +135,45 @@ def phase_build():
     libs = build.build_all()
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs)})")
+    for line in build.build_log("ppo_loss.cu").splitlines():
+        if "ptxas" in line:
+            print(f"build ppo_loss.cu: {line.strip()}")
+
+
+def device_kernels(fn) -> list[str]:
+    """Names of the device kernels that one call of `fn` runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def loss_autograd_times(plk, batch, coefs) -> dict[str, tuple[float, float]]:
+    """(device ms, call ms) of the fused loss as autograd runs it, using only
+    what every version of the package has: the forward (fused_clip_loss),
+    the whole backward (the Function's backward as the engine calls it, on
+    the saved inputs and a cotangent of 1) and both through autograd.grad."""
+    leaves = [x.detach().requires_grad_() for x in batch[:3]]
+    kw = dict(zip(("clip_eps", "value_coef", "entropy_coef"), coefs))
+    g = torch.ones((), device=batch[0].device)
+    ctx = types.SimpleNamespace(saved_tensors=tuple(batch), coefs=coefs)
+
+    def forward():
+        return plk.fused_clip_loss(*leaves, *batch[3:], **kw)
+
+    fns = {"forward": forward,
+           "backward": lambda: plk._FusedClipLoss.backward(ctx, g, None),
+           "forward+backward": lambda: torch.autograd.grad(forward()[0], leaves, g)}
+    return {name: timed(fn, 200) for name, fn in fns.items()}
+
+
+def print_autograd_times(label: str, times: dict[str, tuple[float, float]]) -> None:
+    print(f"loss autograd ({label}): " + "; ".join(
+        f"{name} device {ms * 1e3:.2f} us, call {call_ms * 1e3:.2f} us"
+        for name, (ms, call_ms) in times.items()))
 
 
 def loss_batch(rng, N, A, device):
@@ -158,26 +215,31 @@ def phase_kernels(dev):
                       bound_by=bound_by, library_ms=None, bytes=moved, call_ms=call_ms,
                       plain_call_ms=plain_call_ms)
 
-    # --- fused loss at the main path's minibatch N = 4096, A = 6 ---
+    # --- fused loss at the main path's minibatch N = 4096, A = 6: log_std
+    # (A,) shared by all rows, log_std_old (N, A), a cotangent of 1 ---
     N, A = 4096, 6
     batch = loss_batch(rng, N, A, dev)
     coefs = (0.2, 0.5, 0.0)
-    k_means = plk.loss_fwd(*batch, coefs[0])
-    p_means = plk.loss_fwd_plain(*batch, coefs[0])
-    k_grads = plk.loss_bwd(*batch, *coefs)
-    p_grads = plk.loss_bwd_plain(*batch, *coefs)
+    g = torch.ones((), device=dev)
+    k_fwd, p_fwd = plk.loss_fwd(*batch, *coefs), plk.loss_fwd_plain(*batch, *coefs)
+    k_bwd, p_bwd = plk.loss_bwd(*batch, g, *coefs), plk.loss_bwd_plain(*batch, g, *coefs)
     torch.cuda.synchronize()
-    fwd_err = (k_means - p_means).abs().max().item()
-    bwd_err = max((a - b).abs().max().item() for a, b in zip(k_grads, p_grads))
-    # the forward reads every input; the backward all but mean_old and
-    # log_std_old (batch[5], batch[6])
-    fwd_moved = nbytes(*batch) + nbytes(k_means)
-    bwd_moved = nbytes(*batch[:5], *batch[7:]) + nbytes(*k_grads)
+    for k, p in (*zip(k_fwd, p_fwd), *zip(k_bwd, p_bwd)):
+        if k.shape != p.shape:
+            fail(f"loss kernel output of shape {tuple(k.shape)}, plain {tuple(p.shape)}")
+    fwd_err = max((a - b).abs().max().item() for a, b in zip(k_fwd, p_fwd))
+    bwd_err = max((a - b).abs().max().item() for a, b in zip(k_bwd, p_bwd))
+    # the forward reads every input and writes the loss and 5 metrics; the
+    # backward reads all but mean_old and log_std_old (batch[5], batch[6])
+    # and the cotangent, and writes dmean, dlog_std (A,) and dvalue
+    fwd_moved = nbytes(*batch) + nbytes(*k_fwd)
+    bwd_moved = nbytes(*batch[:5], *batch[7:], g) + nbytes(*k_bwd)
     for name, line, err, tol, moved, ops, kernel, plain in (
             ("ppo_loss_fwd", 134, fwd_err, TOL_LOSS_FWD, fwd_moved, LOSS_FWD_OPS_PER_ROW,
-             lambda: plk.loss_fwd(*batch, coefs[0]), lambda: plk.loss_fwd_plain(*batch, coefs[0])),
+             lambda: plk.loss_fwd(*batch, *coefs), lambda: plk.loss_fwd_plain(*batch, *coefs)),
             ("ppo_loss_bwd", 178, bwd_err, TOL_LOSS_BWD, bwd_moved, LOSS_BWD_OPS_PER_ROW,
-             lambda: plk.loss_bwd(*batch, *coefs), lambda: plk.loss_bwd_plain(*batch, *coefs))):
+             lambda: plk.loss_bwd(*batch, g, *coefs),
+             lambda: plk.loss_bwd_plain(*batch, g, *coefs))):
         ms, call_ms = timed(kernel, 200)
         plain_ms, plain_call_ms = timed(plain, 50)
         bound_ms, bound_by = bound(moved, N * (ops[0] * A + ops[1]))
@@ -195,6 +257,7 @@ def phase_kernels(dev):
         if not k["max_abs_err"] <= k["tol"]:
             fail(f"kernel {k['name']} disagrees with its plain version: "
                  f"{k['max_abs_err']} > {k['tol']}")
+    print_autograd_times("this checkout", loss_autograd_times(plk, batch, coefs))
     return out
 
 
@@ -305,7 +368,8 @@ def breakdown(trainer):
     """Two more iterations: one split into rollout and update on the host
     clock, then one under torch.profiler for the device's busy time and
     kernel count (the profiler slows the host, so the idle share is taken
-    against the unprofiled iteration's wall time)."""
+    against the unprofiled iteration's wall time); and the loss's device
+    kernels, for one call each way and in one minibatch step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -320,12 +384,29 @@ def breakdown(trainer):
         mid = time.perf_counter()
         ppo.update(t.cfg, t.state, traj, t.generator)
         torch.cuda.synchronize()
-        return mid
+        return mid, traj
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    t1 = iteration()
+    t1, traj = iteration()
     t2 = time.perf_counter()
+
+    # A forward and a backward of fused_clip_loss at the main path's
+    # minibatch: one device kernel each. These short profiles go first: run
+    # after a profile of a whole iteration, they saw no device events.
+    from surreal_tpu_torch.ops import ppo_loss_kernel as plk
+
+    batch = loss_batch(np.random.default_rng(0), 4096, 6, traj.obs.device)
+    leaves = [x.requires_grad_() for x in batch[:3]]
+    g = torch.ones((), device=traj.obs.device)
+    state = {}
+    fwd_names = device_kernels(lambda: state.update(loss=plk.fused_clip_loss(
+        *leaves, *batch[3:], clip_eps=0.2, value_coef=0.5, entropy_coef=0.0)[0]))
+    bwd_names = device_kernels(lambda: torch.autograd.grad(state["loss"], leaves, g))
+    print(f"loss autograd: forward runs {fwd_names}, backward runs {bwd_names}")
+    if len(fwd_names) != 1 or len(bwd_names) != 1:
+        fail("a forward or a backward of fused_clip_loss is not one device kernel")
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         iteration()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -336,10 +417,158 @@ def breakdown(trainer):
           f"kernels, device busy {busy_s:.3f} s = {100 * busy_s / wall_s:.1f}% of the "
           f"unprofiled {wall_s:.3f} s (idle {100 * (1 - busy_s / wall_s):.1f}%)")
 
+    # One minibatch step of the main path's update: the first 16 steps of the
+    # rollout are 16 x 256 = 4096 rows, the main path's minibatch, taken in
+    # one epoch of one minibatch.
+    step_cfg = dataclasses.replace(t.cfg, epochs=1, num_minibatches=1)
+    short = ppo.Trajectory(**{k: x[:16] for k, x in vars(traj).items()})
+    names = device_kernels(lambda: ppo.update(step_cfg, t.state, short, t.generator))
+    loss_names = [n for n in names if "ppo_loss" in n]
+    print(f"one minibatch step of the update: {len(names)} device kernels (GAE and the "
+          f"advantage normalisation included), of which {len(loss_names)} of the loss: "
+          f"{loss_names}")
+    if len(loss_names) != 2:
+        fail(f"one minibatch step ran {len(loss_names)} loss kernels, not 2")
+
+
+def loss_timing(root: str) -> None:
+    """Phase 1 and the autograd timing of phase 3 on the package under
+    `root`, at the main path's minibatch."""
+    sys.path.insert(0, os.path.abspath(root))
+    from surreal_tpu_torch.device import resolve
+    from surreal_tpu_torch.ops import ppo_loss_kernel as plk
+
+    dev = resolve("cuda")
+    phase_card()
+    print(f"package: {os.path.dirname(os.path.dirname(os.path.abspath(plk.__file__)))}")
+    batch = loss_batch(np.random.default_rng(0), 4096, 6, dev)
+    print_autograd_times(root, loss_autograd_times(plk, batch, (0.2, 0.5, 0.0)))
+
+
+FLOOR_CU = r"""
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+template <int kCluster>
+__global__ void __cluster_dims__(kCluster, 1, 1) empty_cluster(float* out) {
+  cooperative_groups::cluster_group c = cooperative_groups::this_cluster();
+  c.sync();
+  if (c.block_rank() == 0 && threadIdx.x == 0) *out = 1.0f;
+  c.sync();
+}
+__global__ void empty_plain(float* out) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) *out = 1.0f;
+}
+extern "C" int empty(float* out, int cluster, int threads, cudaStream_t s) {
+  if (cluster == 16) {
+    cudaFuncSetAttribute(empty_cluster<16>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    empty_cluster<16><<<16, threads, 0, s>>>(out);
+  } else if (cluster == 8) {
+    empty_cluster<8><<<8, threads, 0, s>>>(out);
+  } else {
+    empty_plain<<<-cluster, threads, 0, s>>>(out);  // -cluster plain blocks
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def loss_sweep():
+    """The loss kernels built at other (cluster, threads) than the source's,
+    and empty kernels, each timed in a CUDA graph at the main path's
+    minibatch; the variants' outputs are held against the plain versions."""
+    import ctypes
+
+    from surreal_tpu_torch.device import resolve
+    from surreal_tpu_torch.ops import build, ppo_loss_kernel as plk
+
+    dev = resolve("cuda")
+    phase_card()
+    out_dir = build.BUILD_DIR / "sweep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    source = (build.CSRC / "ppo_loss.cu").read_text()
+    committed = ("constexpr int kThreads = 256;", "constexpr int kCluster = 16;")
+    if not all(line in source for line in committed):
+        fail("ppo_loss.cu no longer declares kThreads = 256 and kCluster = 16")
+
+    def compile_lib(name, text):
+        (out_dir / f"{name}.cu").write_text(text)
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"),
+                        str(out_dir / f"{name}.cu")], check=True, capture_output=True)
+        return ctypes.CDLL(str(out_dir / f"{name}.so"))
+
+    floor = compile_lib("floor", FLOOR_CU)
+    floor.empty.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    floor.empty.restype = ctypes.c_int
+    variants = {}
+    for cluster, threads in ((16, 256), (8, 512), (8, 256), (16, 512)):
+        lib = compile_lib(f"ppo_loss_c{cluster}_t{threads}", source.replace(
+            committed[0], f"constexpr int kThreads = {threads};").replace(
+            committed[1], f"constexpr int kCluster = {cluster};"))
+        fns = lib.ppo_loss_fwd, lib.ppo_loss_bwd
+        for fn, kernel in zip(fns, (plk.FWD, plk.BWD)):
+            fn.argtypes = [*kernel.argtypes, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        variants[(cluster, threads)] = fns
+
+    batch = loss_batch(np.random.default_rng(0), 4096, 6, dev)
+    coefs = (0.2, 0.5, 0.0)
+    g = torch.ones((), device=dev)
+    ptr, N, A, ls_stride, lso_stride = plk._kernel_args(*batch)
+    loss, metrics = torch.empty((), device=dev), torch.empty(5, device=dev)
+    grads = [torch.empty_like(batch[i]) for i in (0, 1, 2)]
+    p_fwd, p_bwd = plk.loss_fwd_plain(*batch, *coefs), plk.loss_bwd_plain(*batch, g, *coefs)
+    bwd_ptrs = [ptr[k] for k in ("mean", "log_std", "value", "action", "logp_old", "adv",
+                                 "vtarg", "v_old")]
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    o = torch.empty(1, device=dev)
+    for rep in range(2):
+        for cluster, threads in ((16, 256), (8, 512), (8, 256), (-16, 256)):
+            ms, _ = timed(lambda: floor.empty(o.data_ptr(), cluster, threads, stream()), 200)
+            kind = f"cluster of {cluster}" if cluster > 0 else f"{-cluster} plain blocks"
+            print(f"sweep {rep}: empty kernel, {kind} x {threads} threads: "
+                  f"device {ms * 1e3:.2f} us")
+        for (cluster, threads), (fwd, bwd) in variants.items():
+            def run_fwd():
+                return fwd(*ptr.values(), N, A, ls_stride, lso_stride, *coefs,
+                           loss.data_ptr(), metrics.data_ptr(), stream())
+
+            def run_bwd():
+                return bwd(*bwd_ptrs, g.data_ptr(), N, A, ls_stride, *coefs, 1.0 / N,
+                           *(x.data_ptr() for x in grads), stream())
+
+            if run_fwd() or run_bwd():
+                fail(f"the loss kernels at cluster {cluster} x {threads} did not launch")
+            torch.cuda.synchronize()
+            err_f = max((a - b).abs().max().item() for a, b in zip((loss, metrics), p_fwd))
+            err_b = max((a - b).abs().max().item() for a, b in zip(grads, p_bwd))
+            if not (err_f <= TOL_LOSS_FWD and err_b <= TOL_LOSS_BWD):
+                fail(f"the loss kernels at cluster {cluster} x {threads} disagree: "
+                     f"{err_f}, {err_b}")
+            t_f, t_b = timed(run_fwd, 200)[0], timed(run_bwd, 200)[0]
+            print(f"sweep {rep}: loss kernels, cluster of {cluster} x {threads} threads"
+                  f"{' (committed)' if (cluster, threads) == (16, 256) else ''}: forward "
+                  f"device {t_f * 1e3:.2f} us (err {err_f:.2e}), backward device "
+                  f"{t_b * 1e3:.2f} us (err {err_b:.2e})")
+        # the committed backward with log_std (N, A): no row sum, so no
+        # cluster barrier and no read of another block's shared memory
+        rows = [x.contiguous() for x in (batch[1].expand(N, A), grads[1].expand(N, A))]
+        bwd = variants[(16, 256)][1]
+        t_rows = timed(lambda: bwd(*bwd_ptrs[:1], rows[0].data_ptr(), *bwd_ptrs[2:],
+                                   g.data_ptr(), N, A, A, *coefs, 1.0 / N, grads[0].data_ptr(),
+                                   rows[1].data_ptr(), grads[2].data_ptr(), stream()), 200)[0]
+        print(f"sweep {rep}: loss backward, cluster of 16 x 256 threads (committed), log_std "
+              f"({N}, {A}): device {t_rows * 1e3:.2f} us")
+
 
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    if sys.argv[1:2] == ["--loss-timing"]:
+        loss_timing(sys.argv[2] if len(sys.argv) > 2 else os.path.dirname(__file__) or ".")
+        return
+    if sys.argv[1:2] == ["--loss-sweep"]:
+        loss_sweep()
+        return
     from surreal_tpu_torch.device import resolve
 
     dev = resolve("cuda")

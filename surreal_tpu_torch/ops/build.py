@@ -1,10 +1,12 @@
 """Builds the CUDA C++ kernels with nvcc and loads them with ctypes.
 
 Each `csrc/*.cu` file becomes one shared library with a plain C interface
-under `build/kernels/` at the repo root, named after a hash of its source,
-so an edit rebuilds it and an unchanged source is loaded as built. The
-nvcc processes for all sources start together. Nothing is built at import
-time: the first launch (or `build_all`) builds.
+under `build/kernels/` at the repo root, named after a hash of its source
+and the flags, so an edit rebuilds it and an unchanged source is loaded as
+built. nvcc's output (with ptxas's registers, shared memory and spills per
+kernel) is kept beside it (`build_log`). The nvcc processes for all sources
+start together. Nothing is built at import time: the first launch (or
+`build_all`) builds.
 
 Every exported C function launches on the stream it is given, allocates
 nothing, and returns `cudaGetLastError()`; `Kernel.launch` raises on a
@@ -25,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -38,7 +40,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes()).hexdigest()[:16]
+    key = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(key).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
 
 
@@ -62,10 +65,18 @@ def build_all(sources: list[str] | None = None) -> list[Path]:
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {src} (rc {proc.returncode}):\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return [_lib_path(s) for s in sources]
+
+
+def build_log(source: str) -> str:
+    """nvcc's output from building `csrc/<source>` ("" if it was built
+    before logs were kept)."""
+    path = _lib_path(source).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
 
 
 def library(source: str) -> ctypes.CDLL:
