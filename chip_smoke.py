@@ -3,14 +3,17 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --loss-timing [ROOT]
     python3 chip_smoke.py --loss-sweep
+    python3 chip_smoke.py --gae-timing [ROOT]
+    python3 chip_smoke.py --gae-sweep
 
 Phases, each of which exits non-zero on failure:
   1. prints the card (nvidia-smi name, power limit) and the torch version;
   2. builds the CUDA C++ kernels from surreal_tpu_torch/ops/csrc with nvcc
-     and prints ptxas's registers, shared memory and spills for ppo_loss.cu;
+     and prints ptxas's registers, shared memory and spills for each;
   3. runs each kernel at the main path's shapes against its plain PyTorch
-     version on the card, and times both with CUDA events; times the fused
-     loss's forward and backward as autograd runs them;
+     version on the card, and times both with CUDA events; checks and times
+     GAE at the recipes' other two (T, B) too; times the fused loss's
+     forward and backward as autograd runs them;
   4. checks the slice on a small input: one PPO update on the card (kernels)
      against the same update on the CPU (plain versions), and one batched
      cheetah env step on the card against the CPU;
@@ -21,8 +24,9 @@ Phases, each of which exits non-zero on failure:
      the loss forward and backward kernels 32 times each; then times one
      more iteration split into rollout and update, profiles another for
      the device's idle share, and profiles one minibatch step of the
-     update for its loss kernels (2: one forward, one backward) and a
-     forward and a backward of fused_clip_loss (one device kernel each).
+     update for its loss kernels (2: one forward, one backward), a
+     forward and a backward of fused_clip_loss and one call of returns.gae
+     (one device kernel each).
      torch.profiler stays attached to the process once used and slows every
      later launch, so nothing is timed after it.
 The line before the last is a JSON object with one entry per kernel; the
@@ -34,6 +38,13 @@ two versions of the package can be timed in turns in one run on one card.
 With --loss-sweep, phase 1 runs, then the loss kernels are rebuilt from
 ppo_loss.cu at other cluster sizes and block widths and timed beside the
 committed ones and beside empty kernels (the launch's floor), twice each.
+With --gae-timing, phase 1 runs, then `returns.gae` of the package under
+ROOT is held against its plain version and timed at the recipes' three
+(T, B). With --gae-sweep, phase 1 runs, then the GAE kernel is rebuilt from
+gae.cu at other (columns, chunks, steps) per block, each held against the
+plain version and timed twice beside an empty launch of the same grid and
+beside a kernel of that grid that only loads the inputs and stores the
+outputs (the launch plus one memory round trip).
 """
 
 from __future__ import annotations
@@ -57,7 +68,9 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 GAE_OPS_PER_ELEM = 9
 LOSS_FWD_OPS_PER_ROW = (23, 29)  # 23·A + 29
 LOSS_BWD_OPS_PER_ROW = (22, 40)  # 22·A + 40, the shared log_std's row sum included
-TOL_GAE = 1e-4  # fp contraction and the γλ product round differently; 128-step scan
+TOL_GAE = 1e-4  # T is split into chunks and recombined, each step one fused multiply-add
+# (T, B) of the recipes: the main path's first
+GAE_SHAPES = ((128, 256), (256, 128), (256, 256))
 TOL_LOSS_FWD = 1e-5  # the loss and 5 means of O(1) terms; 4096-term sums in another order
 TOL_LOSS_BWD = 1e-6  # per-row gradients of size ~1e-4 (they carry 1/N), and their row sum
 # The env step on the card against the CPU: sinf/cosf in FK differ by a few
@@ -135,9 +148,10 @@ def phase_build():
     libs = build.build_all()
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs)})")
-    for line in build.build_log("ppo_loss.cu").splitlines():
-        if "ptxas" in line:
-            print(f"build ppo_loss.cu: {line.strip()}")
+    for source in ("gae.cu", "ppo_loss.cu"):
+        for line in build.build_log(source).splitlines():
+            if "ptxas" in line:
+                print(f"build {source}: {line.strip()}")
 
 
 def device_kernels(fn) -> list[str]:
@@ -189,25 +203,56 @@ def loss_batch(rng, N, A, device):
             f(N), f(N), value + 0.1 * f(N))
 
 
+def gae_batch(rng, T, B, dev):
+    """GAE's arguments at (T, B): N(0, 1) floats, 2% terminations, 5% dones."""
+    g = lambda: torch.tensor(rng.standard_normal((T, B)), dtype=torch.float32, device=dev)  # noqa: E731
+    r, v, nv = g(), g(), g()
+    disc = torch.tensor(rng.random((T, B)) > 0.02, dtype=torch.float32, device=dev)
+    done = torch.tensor(rng.random((T, B)) < 0.05, dtype=torch.bool, device=dev)  # as traj.done
+    return r, v, nv, disc, done, 0.99, 0.95
+
+
+def gae_error(kernel, plain, args) -> float:
+    """Max abs error of kernel(*args) against plain(*args), both outputs;
+    fails above TOL_GAE or if two calls are not bitwise equal."""
+    k, again, p = kernel(*args), kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    T, B = args[0].shape
+    if any(a.shape != b.shape for a, b in zip(k, p)):
+        fail(f"gae at ({T}, {B}): output shapes differ from the plain version's")
+    if not all(torch.equal(a, b) for a, b in zip(k, again)):
+        fail(f"gae at ({T}, {B}): two calls on the same inputs differ")
+    err = max((a - b).abs().max().item() for a, b in zip(k, p))
+    if not err <= TOL_GAE:
+        fail(f"gae at ({T}, {B}) disagrees with its plain version: {err} > {TOL_GAE}")
+    return err
+
+
+def gae_at_shapes(label: str, returns, dev, shapes=GAE_SHAPES) -> None:
+    """`returns.gae` held against `returns.gae_plain` and timed at `shapes`."""
+    rng = np.random.default_rng(1)
+    for T, B in shapes:
+        args = gae_batch(rng, T, B, dev)
+        err = gae_error(returns.gae, returns.gae_plain, args)
+        ms, call_ms = timed(lambda: returns.gae(*args), 200)
+        moved = nbytes(*args[:5]) + 2 * nbytes(args[0])  # five inputs, two outputs
+        print(f"gae ({label}) at (T, B) = ({T}, {B}): max_abs_err {err:.3e} (tol "
+              f"{TOL_GAE:.0e}), device {ms * 1e3:.2f} us, call {call_ms * 1e3:.2f} us, bound "
+              f"{bound(moved, GAE_OPS_PER_ELEM * T * B)[0] * 1e3:.3f} us ({moved} bytes)")
+
+
 def phase_kernels(dev):
     from surreal_tpu_torch.ops import gae_kernel, ppo_loss_kernel as plk, returns
 
     rng = np.random.default_rng(0)
     out = {}
     # --- GAE at the main path's (T, B) = (128, 256) ---
-    T, B = 128, 256
-    g = lambda: torch.tensor(rng.standard_normal((T, B)), dtype=torch.float32, device=dev)  # noqa: E731
-    r, v, nv = g(), g(), g()
-    disc = torch.tensor(rng.random((T, B)) > 0.02, dtype=torch.float32, device=dev)
-    done = torch.tensor(rng.random((T, B)) < 0.05, dtype=torch.bool, device=dev)  # as traj.done
-    args = (r, v, nv, disc, done, 0.99, 0.95)
-    k_adv, k_vt = gae_kernel.gae_cuda(*args)
-    p_adv, p_vt = returns.gae_plain(*args)
-    torch.cuda.synchronize()
-    err = max((k_adv - p_adv).abs().max().item(), (k_vt - p_vt).abs().max().item())
+    T, B = GAE_SHAPES[0]
+    args = gae_batch(rng, T, B, dev)
+    err = gae_error(gae_kernel.gae_cuda, returns.gae_plain, args)
     ms, call_ms = timed(lambda: gae_kernel.gae_cuda(*args), 200)
     plain_ms, plain_call_ms = timed(lambda: returns.gae_plain(*args), 10)
-    moved = nbytes(r, v, nv, disc, done) + nbytes(k_adv, k_vt)
+    moved = nbytes(*args[:5]) + 2 * nbytes(args[0])
     bound_ms, bound_by = bound(moved, GAE_OPS_PER_ELEM * T * B)
     out["gae"] = dict(name="gae", route="cuda", source="surreal_tpu_torch/ops/csrc/gae.cu",
                       replaces="surreal_tpu/ops/pallas_gae.py:72", max_abs_err=err,
@@ -257,6 +302,7 @@ def phase_kernels(dev):
         if not k["max_abs_err"] <= k["tol"]:
             fail(f"kernel {k['name']} disagrees with its plain version: "
                  f"{k['max_abs_err']} > {k['tol']}")
+    gae_at_shapes("this checkout", returns, dev, GAE_SHAPES[1:])
     print_autograd_times("this checkout", loss_autograd_times(plk, batch, coefs))
     return out
 
@@ -406,6 +452,14 @@ def breakdown(trainer):
     print(f"loss autograd: forward runs {fwd_names}, backward runs {bwd_names}")
     if len(fwd_names) != 1 or len(bwd_names) != 1:
         fail("a forward or a backward of fused_clip_loss is not one device kernel")
+    from surreal_tpu_torch.ops import returns
+
+    gae_names = device_kernels(lambda: returns.gae(
+        traj.reward, traj.value, traj.next_value, traj.discount, traj.done, t.cfg.gamma,
+        t.cfg.lam))
+    print(f"returns.gae on the main path's trajectory runs {gae_names}")
+    if len(gae_names) != 1 or "gae_kernel" not in gae_names[0]:
+        fail("one call of returns.gae is not one device kernel")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         iteration()
@@ -443,6 +497,47 @@ def loss_timing(root: str) -> None:
     print(f"package: {os.path.dirname(os.path.dirname(os.path.abspath(plk.__file__)))}")
     batch = loss_batch(np.random.default_rng(0), 4096, 6, dev)
     print_autograd_times(root, loss_autograd_times(plk, batch, (0.2, 0.5, 0.0)))
+
+
+def gae_timing(root: str) -> None:
+    """Phase 1, then `returns.gae` of the package under `root` against its
+    plain version and its times at the recipes' three (T, B)."""
+    sys.path.insert(0, os.path.abspath(root))
+    from surreal_tpu_torch.device import resolve
+    from surreal_tpu_torch.ops import returns
+
+    dev = resolve("cuda")
+    phase_card()
+    print(f"package: {os.path.dirname(os.path.dirname(os.path.abspath(returns.__file__)))}")
+    gae_at_shapes(root, returns, dev)
+
+
+def compile_variants(texts: dict[str, str]) -> dict:
+    """Builds each source text into build/kernels/sweep/<name>.so with the
+    package's nvcc flags, all nvcc processes at once, and loads them."""
+    import ctypes
+
+    from surreal_tpu_torch.ops import build
+
+    out_dir = build.BUILD_DIR / "sweep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, text in texts.items():
+        (out_dir / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"),
+             str(out_dir / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"nvcc failed on the variant {name}:\n{log}")
+        for line in log.splitlines():
+            if "Used" in line:
+                print(f"build {name}: {line.strip()}")
+        libs[name] = ctypes.CDLL(str(out_dir / f"{name}.so"))
+    return libs
 
 
 FLOOR_CU = r"""
@@ -483,27 +578,23 @@ def loss_sweep():
 
     dev = resolve("cuda")
     phase_card()
-    out_dir = build.BUILD_DIR / "sweep"
-    out_dir.mkdir(parents=True, exist_ok=True)
     source = (build.CSRC / "ppo_loss.cu").read_text()
     committed = ("constexpr int kThreads = 256;", "constexpr int kCluster = 16;")
     if not all(line in source for line in committed):
         fail("ppo_loss.cu no longer declares kThreads = 256 and kCluster = 16")
 
-    def compile_lib(name, text):
-        (out_dir / f"{name}.cu").write_text(text)
-        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"),
-                        str(out_dir / f"{name}.cu")], check=True, capture_output=True)
-        return ctypes.CDLL(str(out_dir / f"{name}.so"))
-
-    floor = compile_lib("floor", FLOOR_CU)
+    shapes = ((16, 256), (8, 512), (8, 256), (16, 512))
+    libs = compile_variants({"floor": FLOOR_CU} | {
+        f"ppo_loss_c{cluster}_t{threads}": source.replace(
+            committed[0], f"constexpr int kThreads = {threads};").replace(
+            committed[1], f"constexpr int kCluster = {cluster};")
+        for cluster, threads in shapes})
+    floor = libs["floor"]
     floor.empty.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     floor.empty.restype = ctypes.c_int
     variants = {}
-    for cluster, threads in ((16, 256), (8, 512), (8, 256), (16, 512)):
-        lib = compile_lib(f"ppo_loss_c{cluster}_t{threads}", source.replace(
-            committed[0], f"constexpr int kThreads = {threads};").replace(
-            committed[1], f"constexpr int kCluster = {cluster};"))
+    for cluster, threads in shapes:
+        lib = libs[f"ppo_loss_c{cluster}_t{threads}"]
         fns = lib.ppo_loss_fwd, lib.ppo_loss_bwd
         for fn, kernel in zip(fns, (plk.FWD, plk.BWD)):
             fn.argtypes = [*kernel.argtypes, ctypes.c_void_p]
@@ -560,6 +651,135 @@ def loss_sweep():
               f"({N}, {A}): device {t_rows * 1e3:.2f} us")
 
 
+# The grid and the memory traffic of gae.cu without its arithmetic: thread
+# (c, s) of a block of cols x chunks threads loads its ceil(T / chunks) steps
+# of the five inputs, all loads first, and stores the two outputs.
+GAE_ROUND_TRIP_CU = r"""
+#include <cuda_runtime.h>
+#include <cstdint>
+template <int kMax, int kThreads>
+__global__ void __launch_bounds__(kThreads)
+    round_trip_kernel(const float* __restrict__ r, const float* __restrict__ v,
+                      const float* __restrict__ nv, const float* __restrict__ disc,
+                      const uint8_t* __restrict__ done, float* __restrict__ adv,
+                      float* __restrict__ vtarg, int T, int B, int cols, int L) {
+  const int c = threadIdx.x % cols, s = threadIdx.x / cols;
+  const int b = blockIdx.x * cols + c;
+  const int n = b < B ? max(0, min(L, T - s * L)) : 0;
+  const long base = static_cast<long>(s * L) * B + b;
+  float rr[kMax], vv[kMax], nn[kMax], dd[kMax];
+  uint8_t dn[kMax];
+#pragma unroll
+  for (int j = 0; j < kMax; ++j) {  // no load's result is used before all are started
+    if (j < n) {
+      const long i = base + static_cast<long>(j) * B;
+      rr[j] = r[i];
+      vv[j] = v[i];
+      nn[j] = nv[i];
+      dd[j] = disc[i];
+      dn[j] = done[i];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kMax; ++j) {
+    if (j < n) {
+      const long i = base + static_cast<long>(j) * B;
+      const float x = rr[j] + nn[j] + dd[j] + (dn[j] ? 0.0f : 1.0f);
+      adv[i] = x;
+      vtarg[i] = x + vv[j];
+    }
+  }
+}
+extern "C" int round_trip(const float* r, const float* v, const float* nv, const float* disc,
+                          const uint8_t* done, float* adv, float* vtarg, int T, int B,
+                          int cols, int chunks, cudaStream_t s) {
+  const int L = (T + chunks - 1) / chunks, blocks = (B + cols - 1) / cols;
+  if (L <= 8) {  // few enough registers for blocks of 1024 threads
+    round_trip_kernel<8, 1024><<<blocks, cols * chunks, 0, s>>>(r, v, nv, disc, done, adv,
+                                                                vtarg, T, B, cols, L);
+  } else if (L <= 16 && cols * chunks <= 512) {
+    round_trip_kernel<16, 512><<<blocks, cols * chunks, 0, s>>>(r, v, nv, disc, done, adv,
+                                                                vtarg, T, B, cols, L);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def gae_sweep():
+    """The GAE kernel built at other (columns, chunks, steps) per block than
+    the source's, each held against the plain version and timed in a CUDA
+    graph at two of the recipes' shapes, beside an empty launch of the same
+    grid and beside the loads and stores alone on that grid."""
+    import ctypes
+
+    from surreal_tpu_torch.device import resolve
+    from surreal_tpu_torch.ops import build, gae_kernel, returns
+
+    dev = resolve("cuda")
+    phase_card()
+    source = (build.CSRC / "gae.cu").read_text()
+    committed = {"kCols": 8, "kChunks": 32, "kSteps": 8}
+    if not all(f"constexpr int {k} = {v};" in source for k, v in committed.items()):
+        fail(f"gae.cu no longer declares {committed}")
+    # (columns, chunks, steps): the block has columns x chunks threads and a
+    # segment is chunks x steps long; steps covers T = 128 in one segment
+    # except where it is cut to show the cost of a second segment
+    shapes = ((8, 32, 8), (8, 32, 4), (4, 64, 8), (16, 16, 8), (8, 16, 8), (4, 32, 8),
+              (16, 32, 8), (8, 64, 4), (32, 8, 16), (2, 128, 2), (8, 128, 2))
+
+    def variant(cols, chunks, steps):
+        text = source
+        for (k, v), new in zip(committed.items(), (cols, chunks, steps)):
+            text = text.replace(f"constexpr int {k} = {v};", f"constexpr int {k} = {new};")
+        return text
+
+    libs = compile_variants({"floor": FLOOR_CU, "round_trip": GAE_ROUND_TRIP_CU} | {
+        "gae_c{}_s{}_l{}".format(*shape): variant(*shape) for shape in shapes})
+    floor, trip = libs["floor"].empty, libs["round_trip"].round_trip
+    floor.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    trip.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    floor.restype = trip.restype = ctypes.c_int
+    variants = {shape: libs["gae_c{}_s{}_l{}".format(*shape)].gae_fused for shape in shapes}
+    for fn in variants.values():
+        fn.argtypes = [*gae_kernel.GAE.argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    o = torch.empty(1, device=dev)
+    rng = np.random.default_rng(1)
+    for T, B in (GAE_SHAPES[0], GAE_SHAPES[2]):
+        args = gae_batch(rng, T, B, dev)
+        out = torch.empty((2, T, B), device=dev)
+        ptrs = [x.data_ptr() for x in (*args[:5], *out)]
+        for rep in range(2):
+            for shape, fn in variants.items():
+                cols, chunks, steps = shape
+
+                def kernel(*a):
+                    res = torch.empty((2, T, B), device=dev)
+                    if fn(*(x.data_ptr() for x in (*a[:5], *res)), T, B, a[5], a[5] * a[6],
+                          stream()):
+                        fail(f"gae at {shape} did not launch")
+                    return res
+
+                err = gae_error(kernel, returns.gae_plain, args)
+                blocks, threads = -(-B // cols), cols * chunks
+                ms = timed(lambda: fn(*ptrs, T, B, args[5], args[5] * args[6], stream()), 200)[0]
+                empty_ms = timed(lambda: floor(o.data_ptr(), -blocks, threads, stream()), 200)[0]
+                line = (f"sweep {rep} at (T, B) = ({T}, {B}): gae, {cols} columns x {chunks} "
+                        f"chunks x {steps} steps{' (committed)' if shape == shapes[0] else ''}"
+                        f", {blocks} blocks of {threads}: device {ms * 1e3:.2f} us (err "
+                        f"{err:.2e}); empty launch of that grid {empty_ms * 1e3:.2f} us")
+                if -(-T // chunks) <= (8 if threads > 512 else 16):
+                    if trip(*ptrs, T, B, cols, chunks, stream()):
+                        fail(f"the round-trip kernel at {shape} did not launch")
+                    trip_ms = timed(lambda: trip(*ptrs, T, B, cols, chunks, stream()), 200)[0]
+                    line += f"; loads and stores alone {trip_ms * 1e3:.2f} us"
+                print(line)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -568,6 +788,12 @@ def main():
         return
     if sys.argv[1:2] == ["--loss-sweep"]:
         loss_sweep()
+        return
+    if sys.argv[1:2] == ["--gae-timing"]:
+        gae_timing(sys.argv[2] if len(sys.argv) > 2 else os.path.dirname(__file__) or ".")
+        return
+    if sys.argv[1:2] == ["--gae-sweep"]:
+        gae_sweep()
         return
     from surreal_tpu_torch.device import resolve
 

@@ -22,10 +22,12 @@ GAE = build.Kernel("gae.cu", "gae_fused",
 def gae_cuda(rewards: Tensor, values: Tensor, next_values: Tensor, discounts: Tensor,
              dones: Tensor, gamma: float, lam: float) -> tuple[Tensor, Tensor]:
     """Launches the kernel on time-major (T, B) tensors on one CUDA device
-    (any B; the kernel masks the edge): four float32 arrays and bool dones,
-    read as bytes in place."""
-    if rewards.dim() != 2:
-        raise ValueError(f"gae kernel takes (T, B) arrays, got {tuple(rewards.shape)}")
+    (any T and B; the kernel masks the edges): four float32 arrays and bool
+    dones, read as bytes in place. Contiguous views at any storage offset
+    are taken as they are. One device kernel and one allocation: the two
+    outputs are the halves of one (2, T, B) tensor."""
+    if rewards.dim() != 2 or rewards.numel() == 0:
+        raise ValueError(f"gae kernel takes non-empty (T, B) arrays, got {tuple(rewards.shape)}")
     T, B = rewards.shape
     floats = dict(rewards=rewards, values=values, next_values=next_values,
                   discounts=discounts)
@@ -36,8 +38,9 @@ def gae_cuda(rewards: Tensor, values: Tensor, next_values: Tensor, discounts: Te
                              f"got {tuple(t.shape)} on {t.device}")
     build.check_cuda_tensors(**floats)
     build.check_cuda_tensors(torch.bool, dones=dones)
-    adv = torch.empty_like(rewards)
-    vtarg = torch.empty_like(rewards)
+    adv, vtarg = torch.empty((2, T, B), dtype=torch.float32, device=rewards.device)
+    # gamma*lam is rounded to float32 once, from the double product, as torch
+    # rounds the scalar in the plain version
     GAE.launch(*(t.data_ptr() for t in ins.values()), adv.data_ptr(), vtarg.data_ptr(),
-               T, B, gamma, lam, device=rewards.device)
+               T, B, gamma, gamma * lam, device=rewards.device)
     return adv, vtarg

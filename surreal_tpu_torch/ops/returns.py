@@ -32,6 +32,35 @@ def gae_plain(rewards: Tensor, values: Tensor, next_values: Tensor, discounts: T
     return adv, adv + values
 
 
+def gae_chunked_plain(rewards: Tensor, values: Tensor, next_values: Tensor,
+                      discounts: Tensor, dones: Tensor, gamma: float, lam: float,
+                      chunks: int) -> tuple[Tensor, Tensor]:
+    """`gae_plain` in the kernel's order of operations, for the tests: T is
+    cut into `chunks` chunks of ceil(T / chunks) steps (the last may be
+    shorter). Each chunk is scanned backwards from a carry of 0, keeping the
+    local value y_t and the product p_t of the coefficients from t to the
+    chunk's end; the carries are then composed from the last chunk down and
+    A_t = y_t + p_t·carry. With one chunk it is `gae_plain` itself."""
+    T = rewards.shape[0]
+    delta = rewards + gamma * discounts * next_values - values
+    coef = gamma * lam * discounts * (1.0 - dones.to(values.dtype))
+    L = -(-T // chunks)
+    bounds = [(lo, min(lo + L, T)) for lo in range(0, T, L)]
+    y, p = torch.empty_like(delta), torch.empty_like(delta)
+    for lo, hi in bounds:
+        yc, pc = torch.zeros_like(delta[0]), torch.ones_like(delta[0])
+        for t in reversed(range(lo, hi)):
+            yc = delta[t] + coef[t] * yc
+            pc = coef[t] * pc
+            y[t], p[t] = yc, pc
+    adv = torch.empty_like(delta)
+    carry = torch.zeros_like(delta[0])
+    for lo, hi in reversed(bounds):
+        adv[lo:hi] = y[lo:hi] + p[lo:hi] * carry
+        carry = adv[lo]
+    return adv, adv + values
+
+
 def gae(rewards: Tensor, values: Tensor, next_values: Tensor, discounts: Tensor,
         dones: Tensor, gamma: float, lam: float) -> tuple[Tensor, Tensor]:
     """Generalized Advantage Estimation with the truncation bootstrap:

@@ -3,8 +3,8 @@
 Marked `cuda`: on a machine without a card each test skips (decided in the
 `cuda_device` fixture, never at import). On the card:
     python -m pytest -m cuda tests/test_torch_kernels.py
-Tolerances: GAE 1e-4 abs (a 128-step float32 scan; the kernel contracts
-multiply-adds and rounds γλ once in float32), the loss and its metrics
+Tolerances: GAE 1e-4 abs (a float32 scan; the kernel splits T into chunks
+and recombines them, and fuses each multiply-add), the loss and its metrics
 1e-5 abs (sums of N rows in another order), loss gradients 1e-6 abs
 (per-row values of size ~1/N, and their fixed-order row sum for a shared
 log_std against torch's sum(0)).
@@ -90,6 +90,119 @@ def test_gae_kernel_matches_plain(cuda_device, B):
     torch.cuda.synchronize()
     for a, b in zip(k, p):
         assert (a - b).abs().max().item() <= 1e-4
+
+
+def _gae_batch(T, B, dev, p_done=0.05):
+    g = torch.Generator().manual_seed(1000 * T + B)
+    r, v, nv = (torch.randn(T, B, generator=g).to(dev) for _ in range(3))
+    disc = (torch.rand(T, B, generator=g) > 0.02).float().to(dev)
+    done = (torch.rand(T, B, generator=g) < p_done).to(dev)
+    return r, v, nv, disc, done
+
+
+@pytest.mark.parametrize("T,B", [(128, 256), (256, 128), (256, 256), (100, 100), (1, 7),
+                                 (2048, 128)])
+def test_gae_kernel_matches_plain_at_shapes(cuda_device, T, B):
+    """The recipes' shapes, ragged T and B (a short last chunk, a masked
+    column edge), one step, and T = 2048 walked in 8 segments."""
+    batch = _gae_batch(T, B, cuda_device)
+    k = returns.gae(*batch, 0.99, 0.95)
+    p = returns.gae_plain(*batch, 0.99, 0.95)
+    torch.cuda.synchronize()
+    for a, b in zip(k, p):
+        assert a.shape == b.shape == (T, B) and a.is_contiguous()
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+def test_gae_kernel_long_scans_across_segments(cuda_device):
+    """No done and no termination: the carry crosses every chunk and every
+    segment of T = 1000."""
+    r, v, nv, disc, done = _gae_batch(1000, 64, cuda_device)
+    disc, done = torch.ones_like(disc), torch.zeros_like(done)
+    for a, b in zip(returns.gae(r, v, nv, disc, done, 0.99, 0.95),
+                    returns.gae_plain(r, v, nv, disc, done, 0.99, 0.95)):
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+def test_gae_kernel_takes_misaligned_views(cuda_device):
+    """Contiguous views one row into their storage, at a B that leaves the
+    base off every 16-byte boundary: taken in place, no copy."""
+    batch = [_at_offset(x) for x in _gae_batch(128, 255, cuda_device)]
+    assert all(x.is_contiguous() for x in batch)
+    assert all(x.data_ptr() % 16 for x in batch[:4])
+    for a, b in zip(returns.gae(*batch, 0.99, 0.95), returns.gae_plain(*batch, 0.99, 0.95)):
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("T,B", [(128, 256), (2048, 128)])
+def test_gae_kernel_is_deterministic(cuda_device, T, B):
+    """A fixed order of composition and no atomics: two calls are bitwise equal."""
+    batch = _gae_batch(T, B, cuda_device)
+    first, second = returns.gae(*batch, 0.99, 0.95), returns.gae(*batch, 0.99, 0.95)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+def test_gae_kernel_propagates_nan_like_plain(cuda_device, bad):
+    """0*NaN is formed as in the plain version: a NaN reaches every earlier
+    step of its column, across dones too, and no other column."""
+    r, v, nv, disc, done = _gae_batch(128, 256, cuda_device, p_done=0.2)
+    r[77, 5] = bad
+    assert done[:77, 5].any()
+    k = returns.gae(r, v, nv, disc, done, 0.99, 0.95)
+    p = returns.gae_plain(r, v, nv, disc, done, 0.99, 0.95)
+    for a, b in zip(k, p):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.isinf(a), torch.isinf(b))
+        finite = torch.isfinite(b)
+        assert (a[finite] - b[finite]).abs().max().item() <= 1e-4
+    bad_cols = (~torch.isfinite(k[0])).any(0).nonzero().flatten().tolist()
+    assert bad_cols == [5] and not torch.isfinite(k[0][:78, 5]).any()
+    assert torch.isfinite(k[0][78:, 5]).all()
+
+
+@pytest.mark.parametrize("row", [64, 63, 0, 127])
+def test_gae_kernel_done_row_cuts_the_scan(cuda_device, row):
+    """adv at a done step is its own delta, at a chunk's first step, its
+    last, and both ends of T."""
+    T, B = 128, 40
+    r = torch.ones(T, B, device=cuda_device)
+    v = torch.zeros(T, B, device=cuda_device)
+    done = torch.zeros(T, B, dtype=torch.bool, device=cuda_device)
+    done[row] = True
+    adv, vt = returns.gae(r, v, v, torch.ones_like(r), done, 0.99, 0.95)
+    assert torch.equal(adv[row], torch.ones(B, device=cuda_device))
+    if row:
+        assert torch.allclose(adv[row - 1], 1 + 0.99 * 0.95 * adv[row])
+    assert torch.equal(vt, adv)
+
+
+def test_gae_is_one_device_kernel(cuda_device):
+    """torch.profiler sees exactly one device kernel in `returns.gae`: no
+    cast of dones, no fill, no second pass; and one launch is counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = _gae_batch(128, 256, cuda_device)
+    returns.gae(*batch, 0.99, 0.95)  # warm-up: build and load
+    torch.cuda.synchronize()
+    before = gae_kernel.GAE.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        returns.gae(*batch, 0.99, 0.95)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "gae_kernel" in names[0], names
+    assert gae_kernel.GAE.launches == before + 1
+
+
+def test_gae_kernel_rejects_what_it_does_not_take(cuda_device):
+    r, v, nv, disc, done = _gae_batch(8, 128, cuda_device)
+    for bad in ((r.double(), v, nv, disc, done), (r, v[:4], nv, disc, done),
+                (r, v, nv.t().contiguous().t(), disc, done), (r, v, nv, disc.cpu(), done),
+                (r[:0], v[:0], nv[:0], disc[:0], done[:0])):
+        with pytest.raises(ValueError):
+            gae_kernel.gae_cuda(*bad, 0.99, 0.95)
 
 
 def test_gae_kernel_takes_bool_dones_only(cuda_device):

@@ -2,7 +2,15 @@
 and the Pallas kernel `gae_pallas` in interpret mode, at T=16, B=128 with
 dones and zero discounts. Tolerance 1e-5 abs: float32 scans over 16
 steps whose association order differs (associative scan) and whose
-γλ product is rounded differently (the Pallas kernel)."""
+γλ product is rounded differently (the Pallas kernel).
+
+The CUDA kernel splits T into chunks and recombines them; its order of
+operations is `returns.gae_chunked_plain`, held here against the same
+references at the recipes' (T, B) = (128, 256) and (256, 128) too. There
+the tolerance is 2e-5 abs: advantages of N(0, 1) inputs reach |A| ~ 16-20,
+where one float32 spacing is 1.9e-6, each scan order is within ~4 spacings
+of a float64 evaluation, and two orders were measured at most 6.7e-6 apart
+(3.5 spacings; with rare dones, the longest scans)."""
 
 import numpy as np
 import pytest
@@ -76,3 +84,82 @@ def test_kernel_wrapper_rejects_cpu_tensors(batch):
     """The CUDA entry launches or raises; it never falls back."""
     with pytest.raises(ValueError, match="CUDA"):
         gae_kernel.gae_cuda(*(torch.tensor(x) for x in batch), GAMMA, LAM)
+
+
+# --- the CUDA kernel's chunked order of operations ---
+
+TOL_LONG = 2e-5  # T = 128 and 256: see the module docstring
+SHAPES = [(128, 256), (256, 128), (16, 128)]
+CHUNKS = [1, 8, 32]
+
+
+def _make(T, B, p_term=0.1, p_done=0.15):
+    """The fixture's recipe at any (T, B); numpy arrays for both sides."""
+    rs = np.random.RandomState(1000 * T + B)
+    f = lambda: rs.randn(T, B).astype(np.float32)  # noqa: E731
+    disc = (rs.rand(T, B) > p_term).astype(np.float32)
+    dones = rs.rand(T, B) < p_done
+    dones |= disc == 0
+    return f(), f(), f(), disc, dones
+
+
+def _chunked(b, chunks):
+    return returns.gae_chunked_plain(*(torch.tensor(x) for x in b), GAMMA, LAM, chunks)
+
+
+def _assert_close(ref, port, T):
+    tol = TOL if T <= 16 else TOL_LONG
+    for a_j, a_t in zip(ref, port):
+        np.testing.assert_allclose(np.asarray(a_j), a_t.numpy(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("associative", [True, False])
+@pytest.mark.parametrize("chunks", CHUNKS)
+@pytest.mark.parametrize("T,B", SHAPES)
+def test_chunked_gae_matches_reference_scan(T, B, chunks, associative):
+    b = _make(T, B)
+    _assert_close(jret.gae(*b, GAMMA, LAM, associative=associative), _chunked(b, chunks), T)
+
+
+@pytest.mark.parametrize("chunks", CHUNKS)
+@pytest.mark.parametrize("T,B", SHAPES)
+def test_chunked_gae_matches_pallas_kernel_interpret(T, B, chunks):
+    b = _make(T, B)
+    _assert_close(gae_pallas(*b, GAMMA, LAM, interpret=True), _chunked(b, chunks), T)
+
+
+@pytest.mark.parametrize("chunks", CHUNKS)
+@pytest.mark.parametrize("T,B", [(100, 100), (1, 7)])
+def test_chunked_gae_ragged_shapes(T, B, chunks):
+    """A last chunk shorter than the rest (100 = 7*13 + 9 = 25*4), more
+    chunks than steps (T = 1), and B off the Pallas kernel's 128 lanes."""
+    b = _make(T, B)
+    for associative in (True, False):
+        _assert_close(jret.gae(*b, GAMMA, LAM, associative=associative), _chunked(b, chunks), T)
+
+
+@pytest.mark.parametrize("associative", [True, False])
+def test_chunked_gae_long_scans(associative):
+    """Rare dones: the carry crosses many chunks before anything cuts it."""
+    b = _make(128, 256, p_term=0.002, p_done=0.005)
+    _assert_close(jret.gae(*b, GAMMA, LAM, associative=associative), _chunked(b, 32), 128)
+
+
+@pytest.mark.parametrize("T,B", SHAPES + [(100, 100), (1, 7)])
+def test_one_chunk_is_the_plain_version_bitwise(T, B):
+    t = [torch.tensor(x) for x in _make(T, B)]
+    for a, p in zip(returns.gae_chunked_plain(*t, GAMMA, LAM, 1),
+                    returns.gae_plain(*t, GAMMA, LAM)):
+        assert torch.equal(a, p)
+
+
+def test_chunked_gae_done_cuts_the_scan_across_chunks():
+    """A done row at a chunk's first step: nothing crosses into the chunk
+    below, whatever the carry above."""
+    T, B = 8, 3
+    r, v = torch.ones(T, B), torch.zeros(T, B)
+    dones = torch.zeros(T, B, dtype=torch.bool)
+    dones[4] = True
+    adv, _ = returns.gae_chunked_plain(r, v, v, torch.ones(T, B), dones, GAMMA, LAM, 2)
+    assert torch.equal(adv[4], torch.ones(B))
+    assert torch.allclose(adv[3], 1 + GAMMA * LAM * adv[4])
