@@ -21,16 +21,34 @@ Phases, each of which exits non-zero on failure:
      (256 envs, (256, 256) MLP, horizon 128, 4 epochs x 8 minibatches,
      fused loss), for 1 warm-up and 3 timed iterations, and checks from the
      launch counters that every iteration launched the GAE kernel once and
-     the loss forward and backward kernels 32 times each; then times one
-     more iteration split into rollout and update, profiles another for
-     the device's idle share, and profiles one minibatch step of the
-     update for its loss kernels (2: one forward, one backward), a
-     forward and a backward of fused_clip_loss and one call of returns.gae
-     (one device kernel each).
+     the loss forward and backward kernels 32 times each;
+  6. checks one block of DDPG updates on the card against the same block on
+     the CPU, from the same state, replay contents and indices;
+  7. runs DDPG on cheetah-run at the recipe's configuration (256 envs, actor
+     (300, 200), critic (400, 300), LayerNorm, batch 256, 3-step returns, 16
+     env steps and 16 updates per iteration, a ring of 1,000,000 transitions
+     on the card) for 3 warm-up iterations, which the replay's warm-up of
+     10,000 transitions ends, and 5 timed ones, then one more split into
+     rollout and update block; checks the update and replay counts and that
+     the targets follow the live networks;
+  8. runs recurrent PPO on cheetah-run (256 envs, (256, 256) torsos behind
+     an LSTM of 128, horizon 128, 4 epochs x 8 minibatches of 32 whole
+     sequences) for 1 warm-up and 2 timed iterations, then one more split
+     into rollout and update; checks that every iteration launched the GAE
+     kernel exactly once and that the carry is in use;
+  9. serves the PPO slice's network and Z-filter over TCP on 127.0.0.1:
+     5 requests of a (256, 17) batch, a parameter swap and one more, each
+     answer held against the module's own forward on the card;
+ 10. the profiler checks of the PPO slice: times one more iteration split
+     into rollout and update, profiles another for the device's idle share,
+     and profiles one minibatch step of the update for its loss kernels (2:
+     one forward, one backward), a forward and a backward of
+     fused_clip_loss and one call of returns.gae (one device kernel each).
      torch.profiler stays attached to the process once used and slows every
-     later launch, so nothing is timed after it.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+     later launch, so it comes last and nothing is timed after it.
+Phases 6 to 9 print one JSON object each. The line before the card's is a
+JSON object with one entry per kernel; the last line is
+{"ok": true, "device": {...}}.
 
 With --loss-timing, only phase 1 and the autograd timing of phase 3 run,
 on the surreal_tpu_torch package under ROOT (default: this checkout), so
@@ -49,6 +67,7 @@ outputs (the launch plus one memory round trip).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -406,8 +425,7 @@ def phase_slice(dev):
     print(f"slice: warm-up {t1 - t0:.2f} s, {sec_per_iter:.3f} s/iteration, "
           f"{trainer.steps_per_iteration / sec_per_iter:.1f} env-steps/s, "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-    breakdown(trainer)
-    return launches
+    return trainer, launches
 
 
 def breakdown(trainer):
@@ -483,6 +501,240 @@ def breakdown(trainer):
           f"{loss_names}")
     if len(loss_names) != 2:
         fail(f"one minibatch step ran {len(loss_names)} loss kernels, not 2")
+
+
+def check_finite(label: str, m: dict) -> None:
+    bad = [k for k, v in m.items() if not np.isfinite(v)]
+    if bad:
+        fail(f"{label}: non-finite {bad} in {m}")
+
+
+TOL_DDPG_PARITY = 1e-5  # the bar the small PPO update is held to; metrics 1e-4 relative
+
+
+def phase_ddpg_parity(dev):
+    """One block of 4 DDPG updates (TD3 knobs on, so every branch runs) on
+    the card against the CPU's, from the same networks, ring and draws."""
+    from surreal_tpu_torch.algos import ddpg
+    from surreal_tpu_torch.data import replay as rp
+    from surreal_tpu_torch.models.ddpg_nets import DDPGActor, DDPGCritic
+
+    B, D, A, U, batch = 16, 17, 6, 4, 64
+    cfg = ddpg.DDPGConfig(batch_size=batch, updates_per_iteration=U, replay_capacity=48 * B,
+                          actor_delay=2, target_noise=0.2)
+    gen = torch.Generator().manual_seed(0)
+    chunks = [{"obs": torch.randn(20, B, D, generator=gen),
+               "action": torch.rand(20, B, A, generator=gen) * 2 - 1,
+               "reward": torch.rand(20, B, generator=gen),
+               "done": torch.rand(20, B, generator=gen) < 0.05} for _ in range(3)]  # 60 > 48: wraps
+    oldest = 60 - 48
+    indices = [(oldest + torch.randint(0, 48 - cfg.n_step, (batch,), generator=gen),
+                torch.randint(0, B, (batch,), generator=gen)) for _ in range(U)]
+    target_eps = torch.randn(U, batch, A, generator=gen)
+    results = {}
+    for d in ("cpu", dev):
+        init = torch.Generator().manual_seed(1)
+        state = ddpg.init_state(cfg, DDPGActor(D, A, (64, 48), generator=init).to(d),
+                                DDPGCritic(D, A, (64, 48), generator=init).to(d), D)
+        ring = ddpg.init_replay(cfg, B, D, A, d)
+        for chunk in chunks:
+            ring = rp.replay_insert(ring, {k: v.to(d) for k, v in chunk.items()})
+        state, metrics = ddpg.update(cfg, state, ring, None,
+                                     [(a.to(d), b.to(d)) for a, b in indices], target_eps.to(d))
+        nets = {"actor": state.actor, "critic": state.critic,
+                "target_actor": state.target_actor, "target_critic": state.target_critic}
+        results[d] = ({f"{n}.{k}": p.detach().cpu() for n, net in nets.items()
+                       for k, p in net.named_parameters()},
+                      {k: float(x) for k, x in metrics.items()},
+                      {k: v.cpu() for k, v in ring.data.items()})
+    (p_c, m_c, r_c), (p_g, m_g, r_g) = results["cpu"], results[dev]
+    if not all(torch.equal(r_c[k], r_g[k]) for k in r_c):
+        fail("the ring on the card differs from the CPU's after a wrapped insert")
+    p_err = max((p_c[k] - p_g[k]).abs().max().item() for k in p_c)
+    m_err = max(abs(m_c[k] - m_g[k]) / max(1.0, abs(m_c[k])) for k in m_c)
+    print(json.dumps({"phase": "ddpg_card_vs_cpu", "updates": U, "params_max_abs_err": p_err,
+                      "tol": TOL_DDPG_PARITY, "metrics_max_rel_err": m_err,
+                      "metrics_tol": 1e-4, "metrics": m_g}))
+    check_finite("ddpg card vs cpu", m_g)
+    if not (p_err <= TOL_DDPG_PARITY and m_err <= 1e-4):
+        fail("the card's DDPG update block disagrees with the CPU's")
+
+
+def phase_ddpg(dev):
+    """DDPG at the cheetah-run recipe's configuration, nothing cut."""
+    from surreal_tpu_torch.algos import ddpg
+    from surreal_tpu_torch.train import DDPGTrainer
+
+    cfg = ddpg.DDPGConfig()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()  # the earlier phases' trainer is still alive
+    t = DDPGTrainer("cheetah-run", cfg, num_envs=256, seed=0, device=dev)
+    initial = [p.detach().clone() for p in t.state.target_critic.parameters()]
+    warm_iters, timed_iters = 3, 5
+    t0 = time.perf_counter()
+    warm = t.run(warm_iters, log_every=warm_iters)[-1]  # raises on non-finite metrics
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if warm["updates"] != cfg.updates_per_iteration:
+        fail(f"updates should begin at iteration 3: {warm['updates']} done after 3")
+    m = t.run(timed_iters, log_every=timed_iters)[-1]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    # one more iteration, split on the host clock
+    (t.replay, t.env_state, t.obs, t.ou_state, t.ep_ret, _, _) = ddpg.rollout(
+        cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.ou_state, t.sigma, t.ep_ret,
+        t.generator, t.replay)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    _, last = ddpg.update(cfg, t.state, t.replay, t.generator)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    iters = warm_iters + timed_iters + 1
+    sec_per_iter = (t2 - t1) / timed_iters
+    ring_bytes = nbytes(*t.replay.data.values())
+    out = {"phase": "ddpg_slice", "num_envs": 256, "capacity_t": t.replay.capacity_t,
+           "ring_transitions": t.replay.capacity_t * 256, "ring_bytes": ring_bytes,
+           "warmup_s": t1 - t0, "s_per_iteration": sec_per_iter,
+           "env_steps_per_s": t.steps_per_iteration / sec_per_iter,
+           "rollout_s": t3 - t2, "ms_per_env_step": (t3 - t2) / cfg.rollout_steps * 1e3,
+           "update_block_s": t4 - t3,
+           "ms_per_update": (t4 - t3) / cfg.updates_per_iteration * 1e3,
+           "updates_done": t.state.update_step, "replay_total": t.replay.total,
+           "critic_loss": m["critic_loss"], "actor_loss": m["actor_loss"],
+           "q_mean": m["q_mean"], "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "memory_allocated_before": held_before}
+    print(json.dumps(out))
+    check_finite("ddpg slice", {k: float(v) for k, v in last.items()} | m)
+    if t.replay.capacity_t * 256 < 999_000 or ring_bytes < 90e6:
+        fail(f"the ring is not the recipe's 1,000,000 transitions: {out}")
+    # updates run from the third iteration on; every iteration inserts 16 steps
+    if t.state.update_step != cfg.updates_per_iteration * (iters - 2):
+        fail(f"update_step {t.state.update_step} != 16 x {iters - 2}")
+    if t.replay.total != cfg.rollout_steps * iters:
+        fail(f"replay total {t.replay.total} != 16 x {iters}")
+    if m["critic_loss"] <= 0:
+        fail("the critic loss is not positive: no update ran")
+    for tgt, live, init in zip(t.state.target_critic.parameters(), t.state.critic.parameters(),
+                               initial):
+        if tgt.dim() == 2 and (torch.equal(tgt, live) or torch.equal(tgt, init)):
+            fail("a target weight equals the live one, or never moved")
+
+
+def phase_lstm(dev):
+    """Recurrent PPO at the flagship's widths; returns the GAE launches."""
+    from surreal_tpu_torch.algos import ppo_lstm
+    from surreal_tpu_torch.algos.ppo import PPOConfig
+    from surreal_tpu_torch.ops import gae_kernel, ppo_loss_kernel as plk
+    from surreal_tpu_torch.train import PPOTrainer
+
+    cfg = PPOConfig(horizon=128, epochs=4, num_minibatches=8, lr=3e-4, fused_loss=True)
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    t = PPOTrainer("cheetah-run", cfg, num_envs=256, hidden=(256, 256), seed=0, device=dev,
+                   use_lstm=True, lstm_size=128)
+    gae_kernel.GAE.launches = plk.FWD.launches = plk.BWD.launches = 0
+    warm_iters, timed_iters = 1, 2
+    t0 = time.perf_counter()
+    t.run(warm_iters, log_every=warm_iters)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if gae_kernel.GAE.launches != warm_iters:
+        fail(f"the recurrent warm-up launched GAE {gae_kernel.GAE.launches} times, not 1")
+    m = t.run(timed_iters, log_every=timed_iters)[-1]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    traj, t.env_state, t.obs, t.carry, t.ep_ret, _ = ppo_lstm.rollout(
+        cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.carry, t.ep_ret, t.generator)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    _, last = ppo_lstm.update(cfg, t.state, traj, t.generator)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    iters = warm_iters + timed_iters + 1
+    launches = gae_kernel.GAE.launches
+    sec_per_iter = (t2 - t1) / timed_iters
+    carry_abs = max(float(c.abs().max()) for c in t.carry)
+    out = {"phase": "lstm_ppo_slice", "num_envs": 256, "hidden": [256, 256], "lstm_size": 128,
+           "warmup_s": t1 - t0, "s_per_iteration": sec_per_iter,
+           "env_steps_per_s": t.steps_per_iteration / sec_per_iter,
+           "rollout_s": t3 - t2, "ms_per_env_step": (t3 - t2) / cfg.horizon * 1e3,
+           "update_s": t4 - t3,
+           "ms_per_minibatch_step": (t4 - t3) / (cfg.epochs * cfg.num_minibatches) * 1e3,
+           "gae_launches": launches, "iterations": iters, "carry_max_abs": carry_abs,
+           "policy_loss": m["policy_loss"], "value_loss": m["value_loss"], "kl": m["kl"],
+           "grad_norm": m["grad_norm"], "reward_per_step": m["reward_per_step"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "memory_allocated_before": held_before}
+    print(json.dumps(out))
+    check_finite("lstm slice", {k: float(v) for k, v in last.items()} | m)
+    if launches != iters:
+        fail(f"{iters} recurrent iterations launched the GAE kernel {launches} times")
+    if plk.FWD.launches or plk.BWD.launches:
+        fail("the recurrent path launched the fused loss, which the reference does not use there")
+    if not carry_abs > 0:
+        fail("the LSTM carry is zero after the rollouts")
+    if t.state.update_step != iters or t.state.opt_state.count != 32 * iters:
+        fail(f"update_step {t.state.update_step}, Adam count {t.state.opt_state.count}")
+    return launches
+
+
+TOL_SERVING = 1e-6  # JSON carries float32 exactly; the forward is the same on the same card
+
+
+def phase_serving(dev, trainer):
+    """A PolicyService over the PPO slice's network and Z-filter, asked over
+    TCP and directly."""
+    from surreal_tpu_torch.models.z_filter import zfilter_normalize
+    from surreal_tpu_torch.train.serving import PolicyService, request_actions
+
+    net, zf = trainer.state.net, trainer.state.zfilter
+    svc = PolicyService(net, zfilter=zf)  # no device given: the card
+    server, addr = svc.serve("127.0.0.1")
+    rng = np.random.default_rng(2)
+    errs, round_trips = [], []
+
+    def ask(module):
+        obs = (2 * rng.standard_normal((256, 17))).astype(np.float32)
+        t0 = time.perf_counter()
+        got = request_actions(addr, obs)
+        round_trips.append(time.perf_counter() - t0)
+        with torch.no_grad():
+            want = module(zfilter_normalize(zf, torch.as_tensor(obs, device=dev)))[0]
+        if got.shape != (256, 6) or not np.isfinite(got).all():
+            fail(f"serving answered shape {got.shape}, or non-finite actions")
+        errs.append(float(np.abs(got - want.cpu().numpy()).max()))
+        return got, obs
+
+    try:
+        for _ in range(5):
+            ask(net)
+        swapped = copy.deepcopy(net)
+        with torch.no_grad():
+            swapped.mean_head.bias.add_(0.25)
+        svc.update_params(swapped.state_dict())
+        got, obs = ask(swapped)
+        with torch.no_grad():
+            old = net(zfilter_normalize(zf, torch.as_tensor(obs, device=dev)))[0].cpu().numpy()
+        swap_moved = float(np.abs(got - old).max())
+        obs_act = (2 * rng.standard_normal((256, 17))).astype(np.float32)
+        svc.act(obs_act)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            svc.act(obs_act)  # returns numpy: each call waits for the card
+        act_ms = (time.perf_counter() - t0) / 20 * 1e3
+    finally:
+        server.shutdown()
+        server.server_close()
+    print(json.dumps({"phase": "serving", "requests": len(round_trips), "batch": [256, 17],
+                      "max_abs_err": max(errs), "tol": TOL_SERVING,
+                      "round_trip_ms_median": float(np.median(round_trips[:5])) * 1e3,
+                      "round_trip_ms": [r * 1e3 for r in round_trips], "act_ms": act_ms,
+                      "swap_moved": swap_moved}))
+    if not max(errs) <= TOL_SERVING:
+        fail(f"a served answer is {max(errs)} away from the module's forward")
+    if not abs(swap_moved - 0.25) <= 1e-5:
+        fail(f"update_params moved the answers by {swap_moved}, not by the 0.25 swapped in")
 
 
 def loss_timing(root: str) -> None:
@@ -802,9 +1054,18 @@ def main():
     phase_build()
     kernels = phase_kernels(dev)
     phase_small_parity(dev)
-    launches = phase_slice(dev)
+    trainer, launches = phase_slice(dev)
+    phase_ddpg_parity(dev)
+    phase_ddpg(dev)
+    by_path = {name: {"ppo": n, "ppo_lstm": 0, "ddpg": 0} for name, n in launches.items()}
+    by_path["gae"]["ppo_lstm"] = phase_lstm(dev)
+    phase_serving(dev, trainer)
+    breakdown(trainer)
     for name, k in kernels.items():
-        k["launches"] = launches[name]
+        # each path was driven with the counts at 0 just before it and read
+        # just after; DDPG's path reaches none of the three kernels
+        k["launches"] = sum(by_path[name].values())
+        k["launches_by_path"] = by_path[name]
         for extra in ("tol", "bytes", "call_ms", "plain_call_ms"):
             k.pop(extra)
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -29,6 +29,11 @@ from surreal_tpu_torch.models.z_filter import (
     zfilter_update,
 )
 from surreal_tpu_torch.ops.returns import gae
+from surreal_tpu_torch.parallel.param_sync import (
+    ParamSyncState,
+    param_sync_init,
+    param_sync_refresh,
+)
 
 Tensor = torch.Tensor
 
@@ -36,9 +41,8 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class PPOConfig:
     """The reference's PPOConfig: same fields, same defaults. The port runs
-    one device without parameter staleness, so `publish_every`,
-    `zero_optimizer`/`zero_shards` and `time_shards` must keep their
-    single-device values."""
+    one device, so `zero_optimizer`/`zero_shards` and `time_shards` must
+    keep their single-device values."""
 
     horizon: int = 128
     gamma: float = 0.99
@@ -68,10 +72,10 @@ class PPOConfig:
     time_shards: int = 1
 
     def __post_init__(self):
-        if self.publish_every != 1 or self.time_shards != 1 or self.zero_shards != 1:
+        if self.time_shards != 1 or self.zero_shards != 1:
             raise NotImplementedError(
-                "publish_every, time_shards and zero_shards > 1 are multi-device "
-                "features that are not ported yet (ROADMAP.md, Queue A)"
+                "time_shards and zero_shards > 1 are multi-device features that "
+                "are not ported yet (ROADMAP.md, Queue A)"
             )
         if self.objective not in ("clip", "adaptive_kl"):
             raise ValueError(f"unknown objective {self.objective!r}")
@@ -94,6 +98,9 @@ class PPOTrainState:
     kl_beta: Tensor  # () f32, adaptive-KL penalty coefficient
     lr_scale: Tensor  # () f32, KL-adaptive LR multiplier
     update_step: int
+    # Snapshot of the network the rollouts act on when cfg.publish_every > 1,
+    # else None (the rollouts act on `net` itself: no staleness).
+    psync: ParamSyncState | None = None
 
 
 @dataclasses.dataclass
@@ -112,17 +119,29 @@ class Trajectory:
     done: Tensor
 
 
+def adam_init(module: torch.nn.Module) -> AdamState:
+    return AdamState(count=0,
+                     mu={n: torch.zeros_like(p) for n, p in module.named_parameters()},
+                     nu={n: torch.zeros_like(p) for n, p in module.named_parameters()})
+
+
 def init_state(cfg: PPOConfig, net: PPOActorCritic, obs_dim: int) -> PPOTrainState:
     device = next(net.parameters()).device
-    zeros = {n: torch.zeros_like(p) for n, p in net.named_parameters()}
     return PPOTrainState(
         net=net,
-        opt_state=AdamState(count=0, mu=zeros, nu={n: torch.zeros_like(p) for n, p in zeros.items()}),
+        opt_state=adam_init(net),
         zfilter=zfilter_init(obs_dim, device),
         kl_beta=torch.tensor(cfg.kl_beta_init, dtype=torch.float32, device=device),
         lr_scale=torch.tensor(1.0, dtype=torch.float32, device=device),
         update_step=0,
+        psync=param_sync_init(net) if cfg.publish_every > 1 else None,
     )
+
+
+def acting_params(cfg: PPOConfig, state: PPOTrainState) -> PPOActorCritic:
+    """The network the actor side uses: the published snapshot under
+    staleness (cfg.publish_every > 1), the live learner network otherwise."""
+    return state.psync.actor_params if cfg.publish_every > 1 else state.net
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +193,7 @@ def rollout(cfg: PPOConfig, env: Environment, flatten_obs: Callable,
     """Collects T steps from B lockstep envs. `noise` (T, B, A), if given,
     replaces the standard-normal action noise drawn from `generator`.
     Returns (traj, env_state, obs, ep_ret, episode stats)."""
-    net = state.net
+    net = acting_params(cfg, state)
     B = obs.shape[0]
     done_sum = obs.new_zeros(B)
     done_ret = obs.new_zeros(B)
@@ -233,17 +252,12 @@ def fused_loss_admits(cfg: PPOConfig, rows: int) -> bool:
             and rows % 256 == 0)
 
 
-def _loss_fn(cfg: PPOConfig, net: PPOActorCritic, batch, kl_beta: Tensor, ent_coef: float):
-    obs, action, logp_old, mean_old, log_std_old, adv, vtarg, v_old = batch
-    mean, log_std, value = net(obs)
-    if fused_loss_admits(cfg, mean.shape[0]):
-        from surreal_tpu_torch.ops.ppo_loss_kernel import fused_clip_loss
-
-        return fused_clip_loss(
-            mean, log_std, value, action, logp_old, mean_old, log_std_old,
-            adv, vtarg, v_old, clip_eps=cfg.clip_eps,
-            value_coef=cfg.value_coef, entropy_coef=cfg.entropy_coef,
-        )
+def surrogate_loss(cfg: PPOConfig, mean: Tensor, log_std: Tensor, value: Tensor, batch,
+                   kl_beta: Tensor, ent_coef: float):
+    """The PPO loss and its metrics from the network's outputs on a batch
+    (action, logp_old, mean_old, log_std_old, adv, vtarg, v_old), whose
+    leading axes are the outputs': (N,) rows, or (T, B) sequences."""
+    action, logp_old, mean_old, log_std_old, adv, vtarg, v_old = batch
     logp = DiagGauss.log_prob(mean, log_std, action)
     # log-ratio clamp: keeps exp finite for a diverging policy
     ratio = torch.exp(torch.clamp(logp - logp_old, -20.0, 20.0))
@@ -269,6 +283,56 @@ def _loss_fn(cfg: PPOConfig, net: PPOActorCritic, batch, kl_beta: Tensor, ent_co
         "kl": kl.detach(),
         "clip_frac": clip_frac,
     }
+
+
+def _loss_fn(cfg: PPOConfig, net: PPOActorCritic, batch, kl_beta: Tensor, ent_coef: float):
+    obs, *rest = batch
+    mean, log_std, value = net(obs)
+    if fused_loss_admits(cfg, mean.shape[0]):
+        from surreal_tpu_torch.ops.ppo_loss_kernel import fused_clip_loss
+
+        return fused_clip_loss(
+            mean, log_std, value, *rest, clip_eps=cfg.clip_eps,
+            value_coef=cfg.value_coef, entropy_coef=cfg.entropy_coef,
+        )
+    return surrogate_loss(cfg, mean, log_std, value, rest, kl_beta, ent_coef)
+
+
+def apply_gradients(cfg: PPOConfig, state: PPOTrainState, loss: Tensor, lr: Tensor) -> Tensor:
+    """One optimizer step on `loss`: global-norm clip, Adam, the step scaled
+    by `lr` (cfg.lr · lr_scale); the network's parameters move in place.
+    Returns the gradient's norm."""
+    names, params = zip(*state.net.named_parameters())
+    grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    with torch.no_grad():
+        updates = scale_by_adam(clip_by_global_norm(grads, cfg.max_grad_norm), state.opt_state)
+        for n, p in zip(names, params):
+            p.add_(lr * (-1.0 * updates[n]))
+        return global_norm(grads.values())
+
+
+def finish_update(cfg: PPOConfig, state: PPOTrainState, raw_obs: Tensor, metrics: dict) -> None:
+    """What follows the epochs: the KL-triggered adaptation on the last
+    minibatch's KL, the Z-filter update from the rollout's raw observations,
+    the step count and the publish-to-actors cadence."""
+    kl = metrics["kl"]
+    hi, lo = kl > 2.0 * cfg.kl_target, kl < cfg.kl_target / 2.0
+    if cfg.objective == "adaptive_kl":
+        state.kl_beta = torch.where(
+            hi, state.kl_beta * cfg.lr_adapt_factor,
+            torch.where(lo, state.kl_beta / cfg.lr_adapt_factor, state.kl_beta))
+    if cfg.adapt_lr:
+        lr_scale = torch.where(
+            hi, state.lr_scale / cfg.lr_adapt_factor,
+            torch.where(lo, state.lr_scale * cfg.lr_adapt_factor, state.lr_scale))
+        state.lr_scale = torch.clamp(lr_scale, cfg.lr_min_scale, cfg.lr_max_scale)
+    if cfg.use_zfilter:
+        state.zfilter = zfilter_update(state.zfilter, raw_obs)
+    state.update_step += 1
+    if cfg.publish_every > 1:
+        param_sync_refresh(state.psync, state.net, state.update_step, cfg.publish_every)
+    metrics["lr_scale"] = state.lr_scale
+    metrics["kl_beta"] = state.kl_beta
 
 
 def update(cfg: PPOConfig, state: PPOTrainState, traj: Trajectory,
@@ -299,7 +363,6 @@ def update(cfg: PPOConfig, state: PPOTrainState, traj: Trajectory,
     )
     mb_size = N // cfg.num_minibatches
     ent_coef = entropy_coef_at(cfg, state.update_step)
-    names, params = zip(*net.named_parameters())
     lr = cfg.lr * state.lr_scale
     metrics = {}
     for e in range(cfg.epochs):
@@ -309,31 +372,8 @@ def update(cfg: PPOConfig, state: PPOTrainState, traj: Trajectory,
         for idx in idxs:
             mb = tuple(x[idx] for x in flat)
             loss, metrics = _loss_fn(cfg, net, mb, state.kl_beta, ent_coef)
-            grads = dict(zip(names, torch.autograd.grad(loss, params)))
-            with torch.no_grad():
-                metrics["grad_norm"] = global_norm(grads.values())
-                updates = scale_by_adam(clip_by_global_norm(grads, cfg.max_grad_norm),
-                                        state.opt_state)
-                for n, p in zip(names, params):
-                    p.add_(lr * (-1.0 * updates[n]))
-
-    # KL-triggered adaptation on the last minibatch's KL.
-    kl = metrics["kl"]
-    hi, lo = kl > 2.0 * cfg.kl_target, kl < cfg.kl_target / 2.0
-    if cfg.objective == "adaptive_kl":
-        state.kl_beta = torch.where(
-            hi, state.kl_beta * cfg.lr_adapt_factor,
-            torch.where(lo, state.kl_beta / cfg.lr_adapt_factor, state.kl_beta))
-    if cfg.adapt_lr:
-        lr_scale = torch.where(
-            hi, state.lr_scale / cfg.lr_adapt_factor,
-            torch.where(lo, state.lr_scale * cfg.lr_adapt_factor, state.lr_scale))
-        state.lr_scale = torch.clamp(lr_scale, cfg.lr_min_scale, cfg.lr_max_scale)
-    if cfg.use_zfilter:
-        state.zfilter = zfilter_update(state.zfilter, traj.obs)
-    state.update_step += 1
-    metrics["lr_scale"] = state.lr_scale
-    metrics["kl_beta"] = state.kl_beta
+            metrics["grad_norm"] = apply_gradients(cfg, state, loss, lr)
+    finish_update(cfg, state, traj.obs, metrics)
     return state, metrics
 
 

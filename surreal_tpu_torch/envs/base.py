@@ -52,6 +52,7 @@ class Environment:
 
     episode_steps: int = 1000
     num_reset_rows: int  # size of the pool `_init` draws from
+    device: torch.device  # where the env batch lives
 
     def obs_spec(self) -> Mapping[str, ArraySpec]:
         raise NotImplementedError

@@ -72,3 +72,19 @@ def gae(rewards: Tensor, values: Tensor, next_values: Tensor, discounts: Tensor,
     if rewards.device.type == "cpu":
         return gae_plain(rewards, values, next_values, discounts, dones, gamma, lam)
     return gae_kernel.gae_cuda(rewards, values, next_values, discounts, dones, gamma, lam)
+
+
+def nstep_returns(rewards: Tensor, dones: Tensor, gamma: float) -> tuple[Tensor, Tensor]:
+    """Accumulated n-step reward over a window (n, ...) of rewards and done
+    flags, truncated at episode boundaries. Returns (G, cont) where
+      G    = Σ_{k<n} γ^k r_{t+k} · Π_{j<k} (1 − done_{t+j})
+      cont = γ^n · Π_{k<n} (1 − done_{t+k}), the bootstrap coefficient of
+             Q'(s_{t+n}); zero if the episode ended inside the window."""
+    alive = torch.ones_like(rewards[0])
+    G = torch.zeros_like(rewards[0])
+    scale = 1.0  # a Python float, as in the reference: γ^k in double precision
+    for k in range(rewards.shape[0]):
+        G = G + scale * alive * rewards[k]
+        alive = alive * (1.0 - dones[k].to(rewards.dtype))
+        scale = scale * gamma
+    return G, scale * alive

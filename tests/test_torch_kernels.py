@@ -312,3 +312,64 @@ def test_kernel_rejects_mixed_devices(cuda_device):
     batch[3] = batch[3].cpu()
     with pytest.raises(ValueError):
         plk.loss_fwd(*batch, *COEFS)
+
+
+def test_ppo_lstm_update_launches_gae_kernel_once(cuda_device):
+    """The recurrent path's GAE goes through the kernel on the card: one
+    launch per update, whatever the epochs and minibatches."""
+    from surreal_tpu_torch.algos import ppo, ppo_lstm
+    from surreal_tpu_torch.models.actor_critic import PPOActorCritic
+
+    T, B, H = 16, 8, 16
+    cfg = ppo.PPOConfig(horizon=T, epochs=2, num_minibatches=2)
+    g = torch.Generator().manual_seed(0)
+    net = PPOActorCritic(17, 6, (32, 32), use_lstm=True, lstm_size=H, generator=g).to(cuda_device)
+    state = ppo.init_state(cfg, net, 17)
+    f = lambda *s: torch.randn(*s, generator=g).to(cuda_device)  # noqa: E731
+    traj = ppo_lstm.LSTMTrajectory(
+        obs=f(T, B, 17), action=f(T, B, 6), log_prob=f(T, B) - 8, mean=f(T, B, 6),
+        log_std=torch.zeros(T, B, 6, device=cuda_device), value=f(T, B), next_value=f(T, B),
+        reward=f(T, B), discount=torch.ones(T, B, device=cuda_device),
+        done=(torch.rand(T, B, generator=g) < 0.1).to(cuda_device),
+        init_carry=(0.1 * f(B, H), 0.1 * f(B, H)))
+    before = gae_kernel.GAE.launches
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    state, metrics = ppo_lstm.update(cfg, state, traj, gen)
+    assert gae_kernel.GAE.launches == before + 1
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert state.opt_state.count == 4
+
+
+@pytest.mark.parametrize("capacity_t,chunk_lens", [(8, [5, 5]), (8, [3] * 7), (6, [2, 6])])
+def test_replay_on_card_matches_cpu(cuda_device, capacity_t, chunk_lens):
+    """Insert with wraparound and the n-step gather on the card against the
+    CPU, from the same chunks and the same indices: exact, both move data
+    only."""
+    from surreal_tpu_torch.data import replay
+
+    g = torch.Generator().manual_seed(capacity_t)
+    B = 4
+    rings = {d: replay.replay_init({"obs": torch.zeros(B, 3, device=d),
+                                    "done": torch.zeros(B, dtype=torch.bool, device=d)},
+                                   capacity_t) for d in ("cpu", cuda_device)}
+    for T in chunk_lens:
+        chunk = {"obs": torch.randn(T, B, 3, generator=g),
+                 "done": torch.rand(T, B, generator=g) < 0.3}
+        rings = {d: replay.replay_insert(r, {k: v.to(d) for k, v in chunk.items()})
+                 for d, r in rings.items()}
+    cpu, card = rings["cpu"], rings[cuda_device]
+    assert cpu.total == card.total == sum(chunk_lens)
+    for k in cpu.data:
+        assert torch.equal(cpu.data[k], card.data[k].cpu())
+    oldest = max(cpu.total - capacity_t, 0)
+    a = oldest + torch.randint(0, cpu.total - 4 + 1 - oldest, (64,), generator=g)
+    b = torch.randint(0, B, (64,), generator=g)
+    w_cpu = replay.replay_sample_nstep(cpu, None, 64, 3, index=(a, b))
+    w_card = replay.replay_sample_nstep(card, None, 64, 3,
+                                        index=(a.to(cuda_device), b.to(cuda_device)))
+    for k in w_cpu:
+        assert w_card[k].shape == (4, 64) + cpu.data[k].shape[2:]
+        assert torch.equal(w_cpu[k], w_card[k].cpu())
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    own = replay.replay_sample_nstep(card, gen, 64, 3)
+    assert own["obs"].device.type == "cuda" and own["obs"].shape == (4, 64, 3)

@@ -124,6 +124,130 @@ def test_device_resolution_has_no_cpu_fallback():
 
 
 def test_pixel_and_lstm_forms_raise():
-    for kw in ({"pixel_obs": True}, {"use_lstm": True}):
-        with pytest.raises(NotImplementedError):
-            PPOActorCritic(OBS_DIM, ACT_DIM, HIDDEN, **kw)
+    """The pixel forms are refused; the LSTM form, once refused, is built."""
+    from surreal_tpu_torch.models.ddpg_nets import DDPGActor, DDPGCritic
+
+    for build in (lambda: PPOActorCritic(OBS_DIM, ACT_DIM, HIDDEN, pixel_obs=True),
+                  lambda: DDPGActor(OBS_DIM, ACT_DIM, pixel_obs=True),
+                  lambda: DDPGCritic(OBS_DIM, ACT_DIM, pixel_obs=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            build()
+    net = PPOActorCritic(OBS_DIM, ACT_DIM, HIDDEN, use_lstm=True, lstm_size=8)
+    c, h = net.initial_carry((3,))
+    assert c.shape == h.shape == (3, 8) and PPOActorCritic(OBS_DIM, ACT_DIM).initial_carry() is None
+
+
+# --- the DDPG nets, relu + LayerNorm and the LSTM form. Tolerance 1e-5:
+# flax's LayerNorm takes the variance as E[x²] − E[x]², torch in two passes,
+# and the LSTM compounds its rounding over the steps. ---
+
+TOL_NEW = 1e-5
+
+
+def _leaves_equal(a, b):
+    for (pa, x), (pb, y) in zip(jax.tree_util.tree_leaves_with_path(a),
+                                jax.tree_util.tree_leaves_with_path(b), strict=True):
+        assert pa == pb
+        np.testing.assert_array_equal(np.asarray(x), y)
+
+
+@pytest.mark.parametrize("layer_norm", [False, True])
+def test_mlp_relu_layer_norm_matches_flax(layer_norm):
+    from surreal_tpu.models.blocks import MLP as FlaxMLP
+    from surreal_tpu_torch.models.blocks import MLP
+
+    net = FlaxMLP((32, 24, 16), "relu", layer_norm)
+    x = (3 * np.random.RandomState(2).randn(64, OBS_DIM) + 1).astype(np.float32)
+    params = jax.device_get(net.init(jax.random.PRNGKey(0), x))
+    if layer_norm:  # away from flax's init of scale 1, bias 0
+        ln = params["params"]["LayerNorm_0"]
+        ln["scale"] = (1 + 0.3 * np.random.RandomState(3).randn(32)).astype(np.float32)
+        ln["bias"] = (0.3 * np.random.RandomState(4).randn(32)).astype(np.float32)
+    port = MLP(OBS_DIM, (32, 24, 16), "relu", layer_norm)
+    port.load_state_dict(params_from_flax(params))
+    with torch.no_grad():
+        out = port(_t(x))
+    np.testing.assert_allclose(np.asarray(net.apply(params, x)), out.numpy(), rtol=0, atol=TOL_NEW)
+    _leaves_equal(params, params_to_flax(port.state_dict()))
+
+
+@pytest.mark.parametrize("which", ["actor", "critic"])
+def test_ddpg_nets_match_flax(which):
+    from surreal_tpu.models import ddpg_nets as jnets
+    from surreal_tpu_torch.models import ddpg_nets as tnets
+
+    rs = np.random.RandomState(5)
+    obs = rs.randn(64, OBS_DIM).astype(np.float32)
+    act = rs.uniform(-1, 1, (64, ACT_DIM)).astype(np.float32)
+    if which == "actor":
+        jnet, args = jnets.DDPGActor(ACT_DIM, (48, 32)), (obs,)
+        port = tnets.DDPGActor(OBS_DIM, ACT_DIM, (48, 32))
+    else:
+        jnet, args = jnets.DDPGCritic((48, 32)), (obs, act)
+        port = tnets.DDPGCritic(OBS_DIM, ACT_DIM, (48, 32))
+    params = jax.device_get(jnet.init(jax.random.PRNGKey(1), *args))
+    # flax's last layer is ±sqrt(3e-3 / fan_in): scale it up so that the
+    # comparison sees the torso
+    params["params"]["Dense_0"]["kernel"] = params["params"]["Dense_0"]["kernel"] * 300
+    port.load_state_dict(params_from_flax(params))
+    with torch.no_grad():
+        out = port(*map(_t, args))
+    ref = np.asarray(jnet.apply(params, *args))
+    assert out.shape == ref.shape and np.abs(ref).max() > 0.1
+    np.testing.assert_allclose(ref, out.numpy(), rtol=0, atol=TOL_NEW)
+    _leaves_equal(params, params_to_flax(port.state_dict()))
+
+
+def test_ddpg_head_init_is_small_uniform():
+    from surreal_tpu_torch.models.ddpg_nets import DDPGActor, DDPGCritic
+
+    gen = torch.Generator().manual_seed(0)
+    for net in (DDPGActor(OBS_DIM, ACT_DIM, generator=gen),
+                DDPGCritic(OBS_DIM, ACT_DIM, generator=gen)):
+        w = net.head.weight.detach()
+        limit = (3e-3 / w.shape[1]) ** 0.5
+        assert w.abs().max().item() <= limit and w.abs().max().item() > 0.8 * limit
+        assert float(net.head.bias.abs().max()) == 0
+        assert net.torso.layer_norm.eps == 1e-6
+        assert [n for n, _ in net.torso.named_children()] == ["dense_0", "dense_1", "layer_norm"]
+
+
+def test_lstm_actor_critic_matches_flax():
+    """Five steps with the carry threaded through and zeroed for two of the
+    envs after the second step; outputs and carry, in the order (c, h)."""
+    B, H = 6, 16
+    jnet = FlaxAC(action_dim=ACT_DIM, hidden=HIDDEN, use_lstm=True, lstm_size=H)
+    rs = np.random.RandomState(6)
+    obs = rs.randn(5, B, OBS_DIM).astype(np.float32)
+    carry_j = jnet.initial_carry((B,))
+    params = jax.device_get(jnet.init(jax.random.PRNGKey(2), obs[0], carry_j))
+    for g in "ifgo":  # flax's biases start at zero
+        params["params"]["lstm"][f"h{g}"]["bias"] = (0.2 * rs.randn(H)).astype(np.float32)
+    port = PPOActorCritic(OBS_DIM, ACT_DIM, HIDDEN, use_lstm=True, lstm_size=H)
+    port.load_state_dict(params_from_flax(params))
+    _leaves_equal(params, params_to_flax(port.state_dict()))
+    carry_t = port.initial_carry((B,))
+    keep = np.ones((B, 1), np.float32)
+    keep[[1, 4]] = 0
+    for t in range(5):
+        mean_j, ls_j, v_j, carry_j = jnet.apply(params, obs[t], carry_j)
+        with torch.no_grad():
+            mean_t, ls_t, v_t, carry_t = port(_t(obs[t]), carry_t)
+        for a, b in ((mean_j, mean_t), (ls_j, ls_t), (v_j, v_t), (carry_j[0], carry_t[0]),
+                     (carry_j[1], carry_t[1])):
+            np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=0, atol=TOL_NEW)
+        if t == 1:
+            carry_j = tuple(c * keep for c in carry_j)
+            carry_t = tuple(c * _t(keep) for c in carry_t)
+    assert np.abs(np.asarray(carry_j[0]) - np.asarray(carry_j[1])).max() > 1e-2  # c is not h
+
+
+def test_lstm_cell_init_mirrors_flax():
+    from surreal_tpu_torch.models.blocks import LSTMCell
+
+    cell = LSTMCell(64, 32, generator=torch.Generator().manual_seed(0))
+    for w in cell.weight_hh.detach().chunk(4):  # orthogonal per gate
+        np.testing.assert_allclose((w @ w.T).numpy(), np.eye(32), atol=1e-5)
+    w = cell.weight_ih.detach()
+    assert abs(w.std().item() - (1 / 64) ** 0.5) < 0.05 * (1 / 64) ** 0.5  # lecun normal
+    assert float(cell.bias.abs().max()) == 0

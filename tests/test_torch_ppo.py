@@ -40,24 +40,14 @@ from surreal_tpu.ops import returns as jret
 from surreal_tpu_torch.algos import ppo as tppo
 from surreal_tpu_torch.envs import flatten_obs
 from surreal_tpu_torch.envs.base import EnvState
-from surreal_tpu_torch.envs.cheetah import CheetahRun
 from surreal_tpu_torch.models.actor_critic import PPOActorCritic
 from surreal_tpu_torch.models.convert import params_from_flax, params_to_flax
 from surreal_tpu_torch.ops import gae_kernel, returns
+from torch_helpers import ScriptedResets, assert_close as _close, reference_reset_rows
+from torch_helpers import to_torch as _t
 
 TOL_TRAJ, TOL_VALUE, RTOL_METRIC, RTOL_ZF, ATOL_PARAM = 1e-4, 1e-3, 1e-4, 1e-5, 4e-6
 HIDDEN = (32, 32)
-
-
-def _t(x):
-    return torch.tensor(np.asarray(x))
-
-
-def _close(ref, port, tol, name):
-    ref = np.asarray(ref)
-    port = port.detach().numpy() if isinstance(port, torch.Tensor) else np.asarray(port)
-    err = np.abs(ref.astype(np.float64) - port).max()
-    assert err <= tol * max(1.0, np.abs(ref).max()), (name, err)
 
 
 @pytest.fixture(scope="module", params=[(8, 8), (32, 16)], ids=["B8_T8", "B32_T16_fused"])
@@ -95,29 +85,11 @@ def reference(request):
     perms = np.stack([np.asarray(jax.random.permutation(k, N))
                       for k in jax.random.split(k_up, cfg.epochs)])
     noise = (np.asarray(traj.action) - np.asarray(traj.mean)) / np.exp(np.asarray(traj.log_std))
-    # The reference draws every env's reset row each step from its env key;
-    # the key moves on only when the env resets.
-    n_pool = env._pool_q.shape[0]
-    keys, reset_rows = env_state.key, []
-    for done in np.asarray(traj.done):
-        reset_rows.append(np.asarray(jax.vmap(
-            lambda k: jax.random.randint(jax.random.split(k)[0], (), 0, n_pool))(keys)))
-        keys = jnp.where(done[:, None], jax.vmap(lambda k: jax.random.split(k)[1])(keys), keys)
+    reset_rows = reference_reset_rows(env, env_state, traj.done)
     assert np.asarray(traj.done).any(), "the rollout must cross an episode boundary"
     return dict(B=B, T=T, params=jax.device_get(params), env_state=env_state, obs=obs,
                 traj=traj, obs2=obs2, new_state=new_state, metrics=jax.device_get(metrics),
                 perms=perms, noise=noise, reset_rows=reset_rows)
-
-
-class ScriptedResets(CheetahRun):
-    """The port's cheetah env, auto-resetting to the reference's pool rows."""
-
-    def __init__(self, rows):
-        super().__init__(device="cpu")
-        self._rows = [torch.tensor(r) for r in rows]
-
-    def draw_reset_rows(self, batch, generator):
-        return self._rows.pop(0)
 
 
 def _port_inputs(ref):
@@ -198,8 +170,10 @@ def test_config_keeps_reference_fields_and_defaults():
     ref = {f.name: f.default for f in dataclasses.fields(jppo.PPOConfig)}
     port = {f.name: f.default for f in dataclasses.fields(tppo.PPOConfig)}
     assert ref == port
-    with pytest.raises(NotImplementedError):
-        tppo.PPOConfig(publish_every=2)
+    for refused in ({"time_shards": 2}, {"zero_shards": 2}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tppo.PPOConfig(**refused)
+    assert tppo.PPOConfig(publish_every=2).publish_every == 2
 
 
 def test_entropy_anneal_schedule():
@@ -230,3 +204,43 @@ def test_optimizer_matches_optax():
                                 tstate)
         for k in shapes:
             np.testing.assert_allclose(np.asarray(ju[k]), tu[k].numpy(), rtol=1e-6, atol=1e-7)
+
+
+def test_publish_every_param_staleness():
+    """cfg.publish_every > 1: the rollouts act on a snapshot refreshed every
+    K learner updates (as tests/test_ppo.py shows for the reference)."""
+    from surreal_tpu_torch.train import PPOTrainer
+
+    cfg = tppo.PPOConfig(horizon=6, epochs=1, num_minibatches=1, publish_every=3)
+    tr = PPOTrainer("cheetah-run", cfg, num_envs=4, hidden=(16, 16), seed=0, device="cpu")
+    p0 = tr.state.net.mean_head.weight.detach().clone()
+    snap = tr.state.psync.actor_params
+    assert tppo.acting_params(cfg, tr.state) is snap and snap is not tr.state.net
+    for _ in range(2):
+        tr.run(1, log_every=1)
+        # the learner moved, the snapshot is still the initial network, version 0
+        assert tr.state.psync.version == 0
+        assert torch.equal(snap.mean_head.weight, p0)
+        assert not torch.equal(tr.state.net.mean_head.weight, p0)
+    tr.run(1, log_every=1)  # the third update: the snapshot adopts the learner
+    assert tr.state.psync.version == 3
+    for a, b in zip(snap.parameters(), tr.state.net.parameters()):
+        assert torch.equal(a, b)
+    assert tppo.acting_params(tppo.PPOConfig(), tppo.init_state(
+        tppo.PPOConfig(), tr.state.net, 17)) is tr.state.net
+
+
+def test_trainer_evaluate_and_refused_options():
+    from surreal_tpu_torch.train import PPOTrainer
+
+    tr = PPOTrainer("cheetah-run", tppo.PPOConfig(horizon=4, epochs=1, num_minibatches=1),
+                    num_envs=4, hidden=(16, 16), seed=0, device="cpu")
+    tr.env.episode_steps = 5
+    for stochastic in (False, True):
+        out = tr.evaluate(episodes=3, stochastic=stochastic)
+        assert out["episodes"] == 3 and all(np.isfinite(v) for v in out.values())
+    policy, zf = tr.deterministic_policy()
+    assert policy(tr.obs).shape == (4, 6) and zf is tr.state.zfilter
+    for kw in ({"pixel_obs": True}, {"mesh": object()}, {"overlap": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            PPOTrainer("cheetah-run", device="cpu", **kw)

@@ -12,6 +12,7 @@ where one float32 spacing is 1.9e-6, each scan order is within ~4 spacings
 of a float64 evaluation, and two orders were measured at most 6.7e-6 apart
 (3.5 spacings; with rare dones, the longest scans)."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -163,3 +164,21 @@ def test_chunked_gae_done_cuts_the_scan_across_chunks():
     adv, _ = returns.gae_chunked_plain(r, v, v, torch.ones(T, B), dones, GAMMA, LAM, 2)
     assert torch.equal(adv[4], torch.ones(B))
     assert torch.allclose(adv[3], 1 + GAMMA * LAM * adv[4])
+
+
+@pytest.mark.parametrize("n", [1, 3, 5])
+def test_nstep_returns_match_reference(n):
+    """Windows with dones inside (a third of the flags set). Tolerance 1e-6:
+    the same float32 operations in the same order on both sides."""
+    rs = np.random.RandomState(n)
+    rewards = rs.randn(n, 64).astype(np.float32)
+    dones = rs.rand(n, 64) < 0.33
+    G_j, cont_j = jret.nstep_returns(jnp.asarray(rewards), jnp.asarray(dones), 0.99)
+    G_t, cont_t = returns.nstep_returns(torch.tensor(rewards), torch.tensor(dones), 0.99)
+    np.testing.assert_allclose(np.asarray(G_j), G_t.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(cont_j), cont_t.numpy(), rtol=0, atol=1e-6)
+    assert (cont_t.numpy() == 0).any() and (cont_t.numpy() > 0).any()
+    # the reward of the step that ends the episode still counts; nothing after it does
+    first_done = np.where(dones.any(0), dones.argmax(0), n)
+    want = sum(0.99 ** k * rewards[k] * (k <= first_done) for k in range(n))
+    np.testing.assert_allclose(want, G_t.numpy(), rtol=0, atol=1e-5)
