@@ -29,13 +29,16 @@ Phases, each of which exits non-zero on failure:
      env steps and 16 updates per iteration, a ring of 1,000,000 transitions
      on the card) for 3 warm-up iterations, which the replay's warm-up of
      10,000 transitions ends, and 5 timed ones, then one more split into
-     rollout and update block; checks the update and replay counts and that
-     the targets follow the live networks;
+     rollout and update block; checks the update and replay counts, that
+     the targets follow the live networks and, from the launch counters set
+     to 0 before its first iteration, that it launched none of the kernels;
   8. runs recurrent PPO on cheetah-run (256 envs, (256, 256) torsos behind
      an LSTM of 128, horizon 128, 4 epochs x 8 minibatches of 32 whole
      sequences) for 1 warm-up and 2 timed iterations, then one more split
-     into rollout and update; checks that every iteration launched the GAE
-     kernel exactly once and that the carry is in use;
+     into rollout and update; checks from the launch counters, set to 0
+     before its first iteration, that every iteration launched the GAE
+     kernel exactly once and the loss kernels never, and that the carry is
+     in use;
   9. serves the PPO slice's network and Z-filter over TCP on 127.0.0.1:
      5 requests of a (256, 17) batch, a parameter swap and one more, each
      answer held against the module's own forward on the card;
@@ -45,8 +48,12 @@ Phases, each of which exits non-zero on failure:
      one forward, one backward), a forward and a backward of
      fused_clip_loss and one call of returns.gae (one device kernel each).
      torch.profiler stays attached to the process once used and slows every
-     later launch, so it comes last and nothing is timed after it.
-Phases 6 to 9 print one JSON object each. The line before the card's is a
+     later launch, so it comes last and nothing is timed after it;
+ 11. profiles the DDPG cell (one rollout, one update block) and the
+     recurrent PPO cell (a rollout of 16 steps, one epoch of 8 minibatch
+     steps) for their device kernels and device busy time, held against the
+     unprofiled times of the same parts from phases 7 and 8.
+Phases 6 to 9 and 11 print one JSON object each (two in phase 11). The line before the card's is a
 JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}.
 
@@ -392,12 +399,18 @@ def phase_small_parity(dev):
         fail("the card's env step disagrees with the CPU's")
 
 
+def path_kernels() -> dict:
+    """The launchers whose counts say which kernels a path went through."""
+    from surreal_tpu_torch.ops import gae_kernel, ppo_loss_kernel as plk
+
+    return {"gae": gae_kernel.GAE, "ppo_loss_fwd": plk.FWD, "ppo_loss_bwd": plk.BWD}
+
+
 def phase_slice(dev):
     from surreal_tpu_torch.algos.ppo import PPOConfig
-    from surreal_tpu_torch.ops import gae_kernel, ppo_loss_kernel as plk
     from surreal_tpu_torch.train import PPOTrainer
 
-    kernels = {"gae": gae_kernel.GAE, "ppo_loss_fwd": plk.FWD, "ppo_loss_bwd": plk.BWD}
+    kernels = path_kernels()
     cfg = PPOConfig(horizon=128, epochs=4, num_minibatches=8, lr=3e-4, fused_loss=True)
     trainer = PPOTrainer("cheetah-run", cfg, num_envs=256, hidden=(256, 256), seed=0, device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -503,6 +516,83 @@ def breakdown(trainer):
         fail(f"one minibatch step ran {len(loss_names)} loss kernels, not 2")
 
 
+def profiled(fn) -> tuple[int, float]:
+    """(device kernels, their summed device seconds) of one call of `fn`
+    under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(spans), sum(spans) * 1e-6
+
+
+def new_cells_profile(ddpg_t, ddpg_times, lstm_t, lstm_times):
+    """Device kernels and device busy time of the DDPG and recurrent PPO
+    cells, under torch.profiler (so after every timing). DDPG: one whole
+    rollout and one whole update block. Recurrent PPO: a rollout cut to 16
+    of its 128 steps and one epoch (8 of the update's 32 minibatch steps; GAE
+    and the advantage normalisation run once in it). The idle shares are
+    taken against the unprofiled times of the same parts read in the cells'
+    own phases."""
+    from surreal_tpu_torch.algos import ddpg, ppo_lstm
+
+    t, cfg = ddpg_t, ddpg_t.cfg
+
+    def ddpg_rollout():
+        (t.replay, t.env_state, t.obs, t.ou_state, t.ep_ret, _, _) = ddpg.rollout(
+            cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.ou_state, t.sigma, t.ep_ret,
+            t.generator, t.replay)
+
+    n_roll, busy_roll = profiled(ddpg_rollout)
+    n_upd, busy_upd = profiled(lambda: ddpg.update(cfg, t.state, t.replay, t.generator))
+    wall = ddpg_times["rollout_s"] + ddpg_times["update_block_s"]
+    out = {"phase": "ddpg_profile", "rollout_steps": cfg.rollout_steps,
+           "updates": cfg.updates_per_iteration, "rollout_kernels": n_roll,
+           "kernels_per_env_step": n_roll / cfg.rollout_steps, "update_block_kernels": n_upd,
+           "kernels_per_update": n_upd / cfg.updates_per_iteration,
+           "kernels_per_iteration": n_roll + n_upd, "rollout_busy_s": busy_roll,
+           "update_block_busy_s": busy_upd, "unprofiled_rollout_s": ddpg_times["rollout_s"],
+           "unprofiled_update_block_s": ddpg_times["update_block_s"],
+           "idle_share": 1 - (busy_roll + busy_upd) / wall}
+    print(json.dumps(out))
+    if n_roll == 0 or n_upd == 0:
+        fail("the profiler saw no device kernel in the DDPG cell")
+
+    t, cfg = lstm_t, lstm_t.cfg
+    steps = 16
+    short = dataclasses.replace(cfg, horizon=steps)
+    state = {}
+
+    def lstm_rollout():
+        state["traj"], t.env_state, t.obs, t.carry, t.ep_ret, _ = ppo_lstm.rollout(
+            short, t.env, t._flatten, t.state, t.env_state, t.obs, t.carry, t.ep_ret,
+            t.generator)
+
+    # the trajectory of the whole horizon for the update, unprofiled
+    full, t.env_state, t.obs, t.carry, t.ep_ret, _ = ppo_lstm.rollout(
+        cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.carry, t.ep_ret, t.generator)
+    n_roll, busy_roll = profiled(lstm_rollout)
+    epoch = dataclasses.replace(cfg, epochs=1)
+    n_upd, busy_upd = profiled(lambda: ppo_lstm.update(epoch, t.state, full, t.generator))
+    roll_wall = lstm_times["ms_per_env_step"] * 1e-3 * steps
+    epoch_wall = lstm_times["update_s"] / cfg.epochs
+    out = {"phase": "lstm_ppo_profile", "rollout_steps_profiled": steps,
+           "minibatch_steps_profiled": cfg.num_minibatches, "rollout_kernels": n_roll,
+           "kernels_per_env_step": n_roll / steps, "epoch_kernels": n_upd,
+           "kernels_per_minibatch_step": n_upd / cfg.num_minibatches,
+           "rollout_busy_s": busy_roll, "epoch_busy_s": busy_upd,
+           "unprofiled_s_of_the_same_rollout_steps": roll_wall,
+           "unprofiled_s_of_one_epoch": epoch_wall,
+           "rollout_idle_share": 1 - busy_roll / roll_wall,
+           "update_idle_share": 1 - busy_upd / epoch_wall}
+    print(json.dumps(out))
+    if n_roll == 0 or n_upd == 0:
+        fail("the profiler saw no device kernel in the recurrent PPO cell")
+
+
 def check_finite(label: str, m: dict) -> None:
     bad = [k for k, v in m.items() if not np.isfinite(v)]
     if bad:
@@ -561,7 +651,9 @@ def phase_ddpg_parity(dev):
 
 
 def phase_ddpg(dev):
-    """DDPG at the cheetah-run recipe's configuration, nothing cut."""
+    """DDPG at the cheetah-run recipe's configuration, nothing cut. Returns
+    the trainer, the three kernels' launch counts as read after this path's
+    last update (set to 0 before its first iteration) and its times."""
     from surreal_tpu_torch.algos import ddpg
     from surreal_tpu_torch.train import DDPGTrainer
 
@@ -569,6 +661,9 @@ def phase_ddpg(dev):
     torch.cuda.reset_peak_memory_stats()
     held_before = torch.cuda.memory_allocated()  # the earlier phases' trainer is still alive
     t = DDPGTrainer("cheetah-run", cfg, num_envs=256, seed=0, device=dev)
+    kernels = path_kernels()
+    for k in kernels.values():
+        k.launches = 0
     initial = [p.detach().clone() for p in t.state.target_critic.parameters()]
     warm_iters, timed_iters = 3, 5
     t0 = time.perf_counter()
@@ -589,6 +684,8 @@ def phase_ddpg(dev):
     _, last = ddpg.update(cfg, t.state, t.replay, t.generator)
     torch.cuda.synchronize()
     t4 = time.perf_counter()
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
     iters = warm_iters + timed_iters + 1
     sec_per_iter = (t2 - t1) / timed_iters
     ring_bytes = nbytes(*t.replay.data.values())
@@ -601,10 +698,12 @@ def phase_ddpg(dev):
            "ms_per_update": (t4 - t3) / cfg.updates_per_iteration * 1e3,
            "updates_done": t.state.update_step, "replay_total": t.replay.total,
            "critic_loss": m["critic_loss"], "actor_loss": m["actor_loss"],
-           "q_mean": m["q_mean"], "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "memory_allocated_before": held_before}
+           "q_mean": m["q_mean"], "kernel_launches": launches, "max_memory_allocated": peak,
+           "memory_allocated_before": held_before, "peak_above_held_before": peak - held_before}
     print(json.dumps(out))
     check_finite("ddpg slice", {k: float(v) for k, v in last.items()} | m)
+    if any(launches.values()):
+        fail(f"the DDPG path launched {launches}: the reference's reaches none of these kernels")
     if t.replay.capacity_t * 256 < 999_000 or ring_bytes < 90e6:
         fail(f"the ring is not the recipe's 1,000,000 transitions: {out}")
     # updates run from the third iteration on; every iteration inserts 16 steps
@@ -618,13 +717,16 @@ def phase_ddpg(dev):
                                initial):
         if tgt.dim() == 2 and (torch.equal(tgt, live) or torch.equal(tgt, init)):
             fail("a target weight equals the live one, or never moved")
+    return t, launches, out
 
 
 def phase_lstm(dev):
-    """Recurrent PPO at the flagship's widths; returns the GAE launches."""
+    """Recurrent PPO at the flagship's widths. Returns the trainer, the three
+    kernels' launch counts as read after this path's last update (set to 0
+    before its first iteration) and its times."""
     from surreal_tpu_torch.algos import ppo_lstm
     from surreal_tpu_torch.algos.ppo import PPOConfig
-    from surreal_tpu_torch.ops import gae_kernel, ppo_loss_kernel as plk
+    from surreal_tpu_torch.ops import gae_kernel
     from surreal_tpu_torch.train import PPOTrainer
 
     cfg = PPOConfig(horizon=128, epochs=4, num_minibatches=8, lr=3e-4, fused_loss=True)
@@ -632,7 +734,9 @@ def phase_lstm(dev):
     held_before = torch.cuda.memory_allocated()
     t = PPOTrainer("cheetah-run", cfg, num_envs=256, hidden=(256, 256), seed=0, device=dev,
                    use_lstm=True, lstm_size=128)
-    gae_kernel.GAE.launches = plk.FWD.launches = plk.BWD.launches = 0
+    kernels = path_kernels()
+    for k in kernels.values():
+        k.launches = 0
     warm_iters, timed_iters = 1, 2
     t0 = time.perf_counter()
     t.run(warm_iters, log_every=warm_iters)
@@ -650,8 +754,9 @@ def phase_lstm(dev):
     _, last = ppo_lstm.update(cfg, t.state, traj, t.generator)
     torch.cuda.synchronize()
     t4 = time.perf_counter()
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
     iters = warm_iters + timed_iters + 1
-    launches = gae_kernel.GAE.launches
     sec_per_iter = (t2 - t1) / timed_iters
     carry_abs = max(float(c.abs().max()) for c in t.carry)
     out = {"phase": "lstm_ppo_slice", "num_envs": 256, "hidden": [256, 256], "lstm_size": 128,
@@ -660,22 +765,22 @@ def phase_lstm(dev):
            "rollout_s": t3 - t2, "ms_per_env_step": (t3 - t2) / cfg.horizon * 1e3,
            "update_s": t4 - t3,
            "ms_per_minibatch_step": (t4 - t3) / (cfg.epochs * cfg.num_minibatches) * 1e3,
-           "gae_launches": launches, "iterations": iters, "carry_max_abs": carry_abs,
+           "kernel_launches": launches, "iterations": iters, "carry_max_abs": carry_abs,
            "policy_loss": m["policy_loss"], "value_loss": m["value_loss"], "kl": m["kl"],
            "grad_norm": m["grad_norm"], "reward_per_step": m["reward_per_step"],
-           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "memory_allocated_before": held_before}
+           "max_memory_allocated": peak, "memory_allocated_before": held_before,
+           "peak_above_held_before": peak - held_before}
     print(json.dumps(out))
     check_finite("lstm slice", {k: float(v) for k, v in last.items()} | m)
-    if launches != iters:
-        fail(f"{iters} recurrent iterations launched the GAE kernel {launches} times")
-    if plk.FWD.launches or plk.BWD.launches:
+    if launches["gae"] != iters:
+        fail(f"{iters} recurrent iterations launched the GAE kernel {launches['gae']} times")
+    if launches["ppo_loss_fwd"] or launches["ppo_loss_bwd"]:
         fail("the recurrent path launched the fused loss, which the reference does not use there")
     if not carry_abs > 0:
         fail("the LSTM carry is zero after the rollouts")
     if t.state.update_step != iters or t.state.opt_state.count != 32 * iters:
         fail(f"update_step {t.state.update_step}, Adam count {t.state.opt_state.count}")
-    return launches
+    return t, launches, out
 
 
 TOL_SERVING = 1e-6  # JSON carries float32 exactly; the forward is the same on the same card
@@ -1056,16 +1161,18 @@ def main():
     phase_small_parity(dev)
     trainer, launches = phase_slice(dev)
     phase_ddpg_parity(dev)
-    phase_ddpg(dev)
-    by_path = {name: {"ppo": n, "ppo_lstm": 0, "ddpg": 0} for name, n in launches.items()}
-    by_path["gae"]["ppo_lstm"] = phase_lstm(dev)
+    ddpg_trainer, ddpg_launches, ddpg_times = phase_ddpg(dev)
+    lstm_trainer, lstm_launches, lstm_times = phase_lstm(dev)
     phase_serving(dev, trainer)
     breakdown(trainer)
+    new_cells_profile(ddpg_trainer, ddpg_times, lstm_trainer, lstm_times)
     for name, k in kernels.items():
-        # each path was driven with the counts at 0 just before it and read
-        # just after; DDPG's path reaches none of the three kernels
-        k["launches"] = sum(by_path[name].values())
-        k["launches_by_path"] = by_path[name]
+        # every number is a reading: each path was driven with the counts at
+        # 0 just before it and read just after its last update
+        by_path = {"ppo": launches[name], "ppo_lstm": lstm_launches[name],
+                   "ddpg": ddpg_launches[name]}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
         for extra in ("tol", "bytes", "call_ms", "plain_call_ms"):
             k.pop(extra)
     print(json.dumps({"kernels": list(kernels.values())}))

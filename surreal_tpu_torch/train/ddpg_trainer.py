@@ -16,6 +16,8 @@ from surreal_tpu_torch.train.loop import Trainer
 
 
 class DDPGTrainer(Trainer):
+    default_log_every = 50  # the reference's default: DDPG's iterations are short
+
     def __init__(self, env_name: str, cfg: ddpg.DDPGConfig | None = None, num_envs: int = 128,
                  seed: int = 0, actor_hidden=(300, 200), critic_hidden=(400, 300),
                  device: str | torch.device | None = None, pixel_obs: bool = False,
@@ -55,15 +57,8 @@ class DDPGTrainer(Trainer):
          metrics) = ddpg.train_step(
             self.cfg, self.env, self._flatten, self.state, self.replay, self.env_state,
             self.obs, self.ou_state, self.sigma, self.ep_ret, self.generator)
+        metrics["updates"] = self.state.update_step  # a host count: no device read
         return metrics
-
-    def run(self, iterations: int, log_every: int = 50, metric_sink=None) -> list[dict]:
-        """`Trainer.run` with the reference's default of a log entry every 50
-        iterations (DDPG's iterations are short)."""
-        return super().run(iterations, log_every, metric_sink)
-
-    def _host_metrics(self) -> dict:
-        return {"updates": self.state.update_step}
 
     def _describe(self, m: dict) -> str:
         return f"upd {m['updates']} q {m['q_mean']:.2f}"

@@ -17,28 +17,28 @@ class Trainer:
     """A trainer sets `device`, `global_iter` and `steps_per_iteration` and
     implements `_iterate`."""
 
+    default_log_every = 10
     device: torch.device
     global_iter: int  # lifetime iteration count
     steps_per_iteration: int
 
     def _iterate(self) -> dict:
         """One train step on the trainer's own state; returns its metrics
-        (scalar tensors), `episode_return_sum` and `episodes_done` among them."""
+        (scalar tensors, or numbers the host already knows),
+        `episode_return_sum` and `episodes_done` among them."""
         raise NotImplementedError
-
-    def _host_metrics(self) -> dict:
-        """Metrics the host already knows, added to each log entry."""
-        return {}
 
     def _describe(self, m: dict) -> str:
         """The algorithm's part of the log line."""
         return ""
 
-    def run(self, iterations: int, log_every: int = 10,
+    def run(self, iterations: int, log_every: int | None = None,
             metric_sink: Callable | None = None) -> list[dict]:
-        """Returns host-side metric dicts, one per log interval (reading them
+        """Returns host-side metric dicts, one per log interval of `log_every`
+        iterations (the trainer's `default_log_every` if None; reading them
         waits for the device). Raises FloatingPointError on a non-finite
         metric."""
+        log_every = log_every or self.default_log_every
         logs = []
         ep_ret_acc = torch.zeros((), device=self.device)
         ep_cnt_acc = torch.zeros((), device=self.device)
@@ -49,7 +49,7 @@ class Trainer:
             ep_cnt_acc = ep_cnt_acc + metrics["episodes_done"]
             self.global_iter += 1
             if it % log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
+                m = {k: v if isinstance(v, int) else float(v) for k, v in metrics.items()}
                 bad = [k for k, v in m.items() if not np.isfinite(v)]
                 if bad:
                     raise FloatingPointError(
@@ -60,7 +60,6 @@ class Trainer:
                 dt = time.perf_counter() - t0
                 m["iteration"] = self.global_iter
                 m["env_steps"] = self.global_iter * self.steps_per_iteration
-                m.update(self._host_metrics())
                 m["env_steps_per_s"] = log_every * self.steps_per_iteration / dt
                 if cnt > 0:
                     m["episode_return"] = float(ep_ret_acc) / cnt

@@ -350,3 +350,68 @@ def test_trainer_evaluate_and_refused_options():
         if torch.cuda.is_available():
             raise RuntimeError("CUDA present: the default device resolves")
         DDPGTrainer("cheetah-run")
+
+
+def test_train_steps_with_publish_every_match_reference():
+    """Four chained train steps with publish_every=3, the reference's and the
+    port's, from the same networks and the reference's draws (exploration
+    noise, replay indices, reset rows). The warm-up gate opens at the second
+    step, so update_step reads 0, 2, 4, 6 and the snapshot's version 0, 0,
+    4, 4: the third rollout acts on the initial actor while the learner has
+    moved. After each step the version is the reference's, the snapshot, the
+    actor and the critic agree with the reference's to 1e-5 and the ring's
+    actions, which come from the weights acted on, to the rollout's
+    tolerance."""
+    kw = dict(rollout_steps=4, updates_per_iteration=2, batch_size=16, n_step=3,
+              min_replay=8 * B, replay_capacity=32 * B, publish_every=3)
+    jcfg, cfg = jddpg.DDPGConfig(**kw), tddpg.DDPGConfig(**kw)
+    env = jmake_env("cheetah-run")
+    reset_fn, step_fn = jbase.vectorize(env)
+    jes, ts0 = jax.jit(reset_fn)(jax.random.split(jax.random.PRNGKey(1), B))
+    jobs = jbase.flatten_obs(ts0.obs)
+    actor, critic, ap, cp = _flax_nets()
+    ap = jax.device_get(ap)
+    ap["params"]["Dense_0"]["kernel"] = ap["params"]["Dense_0"]["kernel"] * 100  # a_det off 0
+    jstate = jddpg.init_state(jcfg, ap, cp, OBS_DIM)
+    jrep = jddpg.init_replay(jcfg, B, OBS_DIM, ACT_DIM)
+    sigma = jnp.asarray(jddpg.noise_ladder(jcfg, B))
+    jou, jep = jnp.zeros((B, ACT_DIM)), jnp.zeros((B,))
+    jstep = jax.jit(lambda s, rp, es, o, ou, r, k: jddpg.train_step(
+        jcfg, actor.apply, critic.apply, step_fn, jbase.flatten_obs, s, rp, es, o, ou, sigma, r,
+        k))
+
+    state = _port_state(cfg, ap, cp)
+    rep = tddpg.init_replay(cfg, B, OBS_DIM, ACT_DIM, "cpu")
+    es, obs = EnvState(to_torch(jes.q), to_torch(jes.qd), to_torch(jes.t)), to_torch(jobs)
+    ou, ep_ret = torch.zeros(B, ACT_DIM), torch.zeros(B)
+    no_done = np.zeros((cfg.rollout_steps, B), bool)  # 16 steps from t = 0: no episode ends
+
+    seen, lagging = [], []
+    for key in jax.random.split(jax.random.PRNGKey(9), 4):
+        k_roll, k_up = jax.random.split(key)
+        lagging.append(not torch.equal(next(state.psync.actor_params.parameters()),
+                                       next(state.actor.parameters())))
+        rows = reference_reset_rows(env, jes, no_done)
+        jstate, jrep, jes, jobs, jou, jep, _ = jstep(jstate, jrep, jes, jobs, jou, jep, key)
+        eps = np.stack([np.asarray(jax.random.normal(k, (B, ACT_DIM)))
+                        for k in jax.random.split(k_roll, cfg.rollout_steps)])
+        indices = []
+        total = int(jrep.total)  # the updates sample after the rollout's insert
+        for key_u in jax.random.split(k_up, cfg.updates_per_iteration):
+            k_t, k_b = jax.random.split(jax.random.split(key_u, 4)[0])
+            num_valid = total - (cfg.n_step + 1) + 1  # the ring has not wrapped
+            indices.append((to_torch(jax.random.randint(k_t, (16,), 0, num_valid)),
+                            to_torch(jax.random.randint(k_b, (16,), 0, B))))
+        state, rep, es, obs, ou, ep_ret, _ = tddpg.train_step(
+            cfg, ScriptedResets(rows), flatten_obs, state, rep, es, obs, ou, to_torch(sigma),
+            ep_ret, torch.Generator().manual_seed(0), eps=to_torch(eps), indices=indices)
+        assert state.psync.version == int(jstate.psync.version)
+        assert state.update_step == int(jstate.update_step) and rep.total == total
+        _params_close(jstate.psync.actor_params, state.psync.actor_params, ATOL_PARAM, "snapshot")
+        _params_close(jstate.actor_params, state.actor, ATOL_PARAM, "actor")
+        _params_close(jstate.critic_params, state.critic, ATOL_PARAM, "critic")
+        assert_close(jrep.data["action"], rep.data["action"], TOL_TRAJ, "ring actions")
+        assert not np.asarray(jrep.data["done"]).any()
+        seen.append((state.update_step, state.psync.version))
+    assert seen == [(0, 0), (2, 0), (4, 4), (6, 4)]
+    assert lagging == [False, False, True, False]  # the third rollout acted on stale weights

@@ -244,3 +244,66 @@ def test_trainer_evaluate_and_refused_options():
     for kw in ({"pixel_obs": True}, {"mesh": object()}, {"overlap": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             PPOTrainer("cheetah-run", device="cpu", **kw)
+
+
+def test_publish_every_matches_reference():
+    """Three chained train steps with publish_every=2, the reference's and
+    the port's, from the same parameters, noise, permutations and reset
+    draws: after each step the snapshot's version is the reference's, the
+    snapshot and the learner agree with the reference's to 1e-5, and each
+    rollout's means, which come from the weights acted on, agree to the
+    trajectory tolerance (the second rollout acts on the initial weights
+    while the learner has moved)."""
+    B, T, steps = 8, 8, 3
+    kw = dict(horizon=T, epochs=1, num_minibatches=2, publish_every=2, fused_loss=False)
+    jcfg, cfg = jppo.PPOConfig(**kw), tppo.PPOConfig(**kw)
+    env = jmake_env("cheetah-run")
+    reset_fn, step_fn = jbase.vectorize(env)
+    jes, ts0 = jax.jit(reset_fn)(jax.random.split(jax.random.PRNGKey(1), B))
+    jobs = jbase.flatten_obs(ts0.obs)
+    fnet = FlaxAC(action_dim=env.action_dim, hidden=HIDDEN)
+    params = fnet.init(jax.random.PRNGKey(0), jobs[:1])
+    jstate = jppo.init_state(jcfg, params, jobs.shape[-1])
+    jep = jnp.zeros((B,), jnp.float32)
+    roll = jax.jit(lambda s, es, o, r, k: jppo.rollout(
+        jcfg, fnet.apply, step_fn, jbase.flatten_obs, s, es, o, r, k))
+    upd = jax.jit(lambda s, tr, k: jppo.update(jcfg, fnet.apply, s, tr, k))
+
+    net = PPOActorCritic(17, 6, HIDDEN)
+    net.load_state_dict(params_from_flax(jax.device_get(params)))
+    state = tppo.init_state(cfg, net, 17)
+    es, obs, ep_ret = EnvState(_t(jes.q), _t(jes.qd), _t(jes.t)), _t(jobs), torch.zeros(B)
+
+    def close(ref_tree, module, name):
+        got = params_to_flax(dict(module.named_parameters()))
+        for a, b in zip(jax.tree.leaves(ref_tree), jax.tree.leaves(got), strict=True):
+            assert np.abs(np.asarray(a) - b).max() <= 1e-5, name
+
+    versions = []
+    for i, key in enumerate(jax.random.split(jax.random.PRNGKey(3), steps)):
+        k_roll, k_up = jax.random.split(key)
+        jtraj, jes2, jobs, jep, _ = roll(jstate, jes, jobs, jep, k_roll)
+        rows = reference_reset_rows(env, jes, jtraj.done)
+        jes = jes2
+        noise = (np.asarray(jtraj.action) - np.asarray(jtraj.mean)) / np.exp(
+            np.asarray(jtraj.log_std))
+        traj, es, obs, ep_ret, _ = tppo.rollout(
+            cfg, ScriptedResets(rows), flatten_obs, state, es, obs, ep_ret,
+            torch.Generator().manual_seed(0), noise=_t(noise))
+        _close(jtraj.mean, traj.mean, TOL_TRAJ, f"rollout {i}: means of the weights acted on")
+        _close(jtraj.action, traj.action, TOL_TRAJ, f"rollout {i}: actions")
+        if i == 1:  # the learner has moved, the snapshot has not: the lag shows
+            with torch.no_grad():
+                live = state.net(tppo._norm(cfg, state, traj.obs))[0]
+            scale = max(1.0, float(traj.mean.abs().max()))
+            assert float((live - traj.mean).abs().max()) > 50 * TOL_TRAJ * scale
+        jstate, _ = upd(jstate, jtraj, k_up)
+        perms = np.stack([np.asarray(jax.random.permutation(k, B * T))
+                          for k in jax.random.split(k_up, jcfg.epochs)])
+        tppo.update(cfg, state, traj, None, perms=_t(perms))
+        assert state.psync.version == int(jstate.psync.version)
+        assert state.update_step == int(jstate.update_step) == i + 1
+        close(jstate.psync.actor_params, state.psync.actor_params, f"snapshot after step {i}")
+        close(jstate.params, state.net, f"learner after step {i}")
+        versions.append(state.psync.version)
+    assert versions == [0, 2, 2]

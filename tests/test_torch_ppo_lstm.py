@@ -263,3 +263,62 @@ def test_publish_every_on_the_lstm_path():
     tr.run(1, log_every=1)
     assert tr.state.psync.version == 2
     assert torch.equal(tr.state.psync.actor_params.lstm.weight_hh, tr.state.net.lstm.weight_hh)
+
+
+def test_publish_every_matches_reference():
+    """Three chained recurrent train steps with publish_every=2 on both
+    sides, from the same parameters, noise, permutations and reset draws:
+    the snapshot's version is the reference's after each step (0, 2, 2), the
+    snapshot and the learner agree with the reference's to 1e-5, and the
+    rollouts' means, which come from the weights acted on, to the trajectory
+    tolerance."""
+    kw = dict(horizon=T, epochs=1, num_minibatches=2, publish_every=2)
+    jcfg, cfg = jppo.PPOConfig(**kw), tppo.PPOConfig(**kw)
+    env = jmake_env("cheetah-run")
+    reset_fn, step_fn = jbase.vectorize(env)
+    jes, ts0 = jax.jit(reset_fn)(jax.random.split(jax.random.PRNGKey(1), B))
+    jobs = jbase.flatten_obs(ts0.obs)
+    fnet = FlaxAC(action_dim=env.action_dim, hidden=HIDDEN, use_lstm=True, lstm_size=LSTM)
+    jcarry = tuple(jnp.zeros((B, LSTM), jnp.float32) for _ in range(2))
+    params = fnet.init(jax.random.PRNGKey(0), jobs[:1], jax.tree.map(lambda c: c[:1], jcarry))
+    jstate = jppo.init_state(jcfg, params, jobs.shape[-1])
+    jep = jnp.zeros((B,), jnp.float32)
+    roll = jax.jit(lambda s, es, o, c, r, k: jlstm.rollout(
+        jcfg, fnet.apply, step_fn, jbase.flatten_obs, s, es, o, c, r, k))
+    upd = jax.jit(lambda s, tr, k: jlstm.update(jcfg, fnet.apply, s, tr, k))
+
+    net = PPOActorCritic(17, 6, HIDDEN, use_lstm=True, lstm_size=LSTM)
+    net.load_state_dict(params_from_flax(jax.device_get(params)))
+    state = tppo.init_state(cfg, net, 17)
+    es = EnvState(to_torch(jes.q), to_torch(jes.qd), to_torch(jes.t))
+    obs, ep_ret = to_torch(jobs), torch.zeros(B)
+    carry = tuple(torch.zeros(B, LSTM) for _ in range(2))
+
+    def close(ref_tree, module, name):
+        got = params_to_flax(dict(module.named_parameters()))
+        for a, b in zip(jax.tree.leaves(ref_tree), jax.tree.leaves(got), strict=True):
+            assert np.abs(np.asarray(a) - b).max() <= ATOL_PARAM, name
+
+    versions = []
+    for i, key in enumerate(jax.random.split(jax.random.PRNGKey(3), 3)):
+        k_roll, k_up = jax.random.split(key)
+        jtraj, jes2, jobs, jcarry, jep, _ = roll(jstate, jes, jobs, jcarry, jep, k_roll)
+        rows = reference_reset_rows(env, jes, jtraj.done)
+        jes = jes2
+        noise = (np.asarray(jtraj.action) - np.asarray(jtraj.mean)) / np.exp(
+            np.asarray(jtraj.log_std))
+        traj, es, obs, carry, ep_ret, _ = tlstm.rollout(
+            cfg, ScriptedResets(rows), flatten_obs, state, es, obs, carry, ep_ret,
+            torch.Generator().manual_seed(0), noise=to_torch(noise))
+        assert_close(jtraj.mean, traj.mean, TOL_TRAJ, f"rollout {i}: means of the weights acted on")
+        for a, b in zip(jcarry, carry):
+            assert_close(a, b, TOL_VALUE, f"rollout {i}: final carry")
+        jstate, _ = upd(jstate, jtraj, k_up)
+        perms = np.stack([np.asarray(jax.random.permutation(k, B))
+                          for k in jax.random.split(k_up, jcfg.epochs)])
+        tlstm.update(cfg, state, traj, None, perms=to_torch(perms))
+        assert state.psync.version == int(jstate.psync.version)
+        close(jstate.psync.actor_params, state.psync.actor_params, f"snapshot after step {i}")
+        close(jstate.params, state.net, f"learner after step {i}")
+        versions.append(state.psync.version)
+    assert versions == [0, 2, 2]
