@@ -11,9 +11,11 @@ Phases, each of which exits non-zero on failure:
   2. builds the CUDA C++ kernels from surreal_tpu_torch/ops/csrc with nvcc
      and prints ptxas's registers, shared memory and spills for each;
   3. runs each kernel at the main path's shapes against its plain PyTorch
-     version on the card, and times both with CUDA events; checks and times
-     GAE at the recipes' other two (T, B) too; times the fused loss's
-     forward and backward as autograd runs them;
+     version on the card, and times both with CUDA events, and again at the
+     finger-spin path's shapes (GAE at (T, B) = (128, 128), the loss at
+     N = 4096 rows with A = 2); checks and times GAE at the recipes' other
+     two (T, B) too; times the fused loss's forward and backward as
+     autograd runs them;
   4. checks the slice on a small input: one PPO update on the card (kernels)
      against the same update on the CPU (plain versions), and one batched
      cheetah env step on the card against the CPU;
@@ -42,20 +44,35 @@ Phases, each of which exits non-zero on failure:
   9. serves the PPO slice's network and Z-filter over TCP on 127.0.0.1:
      5 requests of a (256, 17) batch, a parameter swap and one more, each
      answer held against the module's own forward on the card;
- 10. the profiler checks of the PPO slice: times one more iteration split
+ 10. the envs: one task for each baked asset but cheetah's, at its recipe's
+     number of envs: a reset on the card with a quarter of the envs at
+     their last step, one control step on the card and the same step on the
+     CPU from the same state, actions and reset draw (q, qd, reward and
+     both observations held to a relative tolerance; envs within 1e-5 of a
+     switch of the constraint solver's active set left out, at most a
+     quarter), and the median of 5 timed control steps on the card; one
+     JSON line per task;
+ 11. runs PPO on finger-spin at its recipe (128 envs, (64, 64), horizon
+     128, 4 epochs x 4 minibatches of 4096 rows, entropy 0.005, fused loss)
+     for 1 warm-up and 2 timed iterations, then one more split into rollout
+     and update; checks from the launch counters, set to 0 before its first
+     iteration, that every iteration launched the GAE kernel once and each
+     loss kernel 16 times;
+ 12. the profiler checks of the PPO slice: times one more iteration split
      into rollout and update, profiles another for the device's idle share,
      and profiles one minibatch step of the update for its loss kernels (2:
      one forward, one backward), a forward and a backward of
      fused_clip_loss and one call of returns.gae (one device kernel each).
      torch.profiler stays attached to the process once used and slows every
      later launch, so it comes last and nothing is timed after it;
- 11. profiles the DDPG cell (one rollout, one update block) and the
-     recurrent PPO cell (a rollout of 16 steps, one epoch of 8 minibatch
+ 13. profiles the DDPG cell (one rollout, one update block), the recurrent
+     PPO cell (a rollout of 16 steps, one epoch of 8 minibatch steps) and
+     the finger-spin cell (a rollout of 4 steps, one epoch of 4 minibatch
      steps) for their device kernels and device busy time, held against the
-     unprofiled times of the same parts from phases 7 and 8.
-Phases 6 to 9 and 11 print one JSON object each (two in phase 11). The line before the card's is a
-JSON object with one entry per kernel; the last line is
-{"ok": true, "device": {...}}.
+     unprofiled times of the same parts from phases 7, 8 and 11.
+Phases 6 to 9, 11 and 13 print one JSON object each (three in phase 13),
+phase 10 one per task. The line before the card's is a JSON object with
+one entry per kernel; the last line is {"ok": true, "device": {...}}.
 
 With --loss-timing, only phase 1 and the autograd timing of phase 3 run,
 on the surreal_tpu_torch package under ROOT (default: this checkout), so
@@ -97,6 +114,8 @@ LOSS_BWD_OPS_PER_ROW = (22, 40)  # 22·A + 40, the shared log_std's row sum incl
 TOL_GAE = 1e-4  # T is split into chunks and recombined, each step one fused multiply-add
 # (T, B) of the recipes: the main path's first
 GAE_SHAPES = ((128, 256), (256, 128), (256, 256))
+FINGER_GAE = (128, 128)  # finger-spin's recipe: horizon 128, 128 envs
+FINGER_ACTIONS = 2
 TOL_LOSS_FWD = 1e-5  # the loss and 5 means of O(1) terms; 4096-term sums in another order
 TOL_LOSS_BWD = 1e-6  # per-row gradients of size ~1e-4 (they carry 1/N), and their row sum
 # The env step on the card against the CPU: sinf/cosf in FK differ by a few
@@ -267,28 +286,24 @@ def gae_at_shapes(label: str, returns, dev, shapes=GAE_SHAPES) -> None:
               f"{bound(moved, GAE_OPS_PER_ELEM * T * B)[0] * 1e3:.3f} us ({moved} bytes)")
 
 
-def phase_kernels(dev):
-    from surreal_tpu_torch.ops import gae_kernel, ppo_loss_kernel as plk, returns
-
-    rng = np.random.default_rng(0)
-    out = {}
-    # --- GAE at the main path's (T, B) = (128, 256) ---
-    T, B = GAE_SHAPES[0]
+def gae_case(gae_kernel, returns, rng, T, B, dev) -> dict:
+    """GAE's kernel at (T, B) held against its plain version and timed."""
     args = gae_batch(rng, T, B, dev)
     err = gae_error(gae_kernel.gae_cuda, returns.gae_plain, args)
     ms, call_ms = timed(lambda: gae_kernel.gae_cuda(*args), 200)
     plain_ms, plain_call_ms = timed(lambda: returns.gae_plain(*args), 10)
-    moved = nbytes(*args[:5]) + 2 * nbytes(args[0])
+    moved = nbytes(*args[:5]) + 2 * nbytes(args[0])  # five inputs, two outputs
     bound_ms, bound_by = bound(moved, GAE_OPS_PER_ELEM * T * B)
-    out["gae"] = dict(name="gae", route="cuda", source="surreal_tpu_torch/ops/csrc/gae.cu",
-                      replaces="surreal_tpu/ops/pallas_gae.py:72", max_abs_err=err,
-                      tol=TOL_GAE, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by=bound_by, library_ms=None, bytes=moved, call_ms=call_ms,
-                      plain_call_ms=plain_call_ms)
+    return dict(name="gae", route="cuda", source="surreal_tpu_torch/ops/csrc/gae.cu",
+                replaces="surreal_tpu/ops/pallas_gae.py:72", max_abs_err=err, tol=TOL_GAE,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                bytes=moved, call_ms=call_ms, plain_call_ms=plain_call_ms, shape=[T, B])
 
-    # --- fused loss at the main path's minibatch N = 4096, A = 6: log_std
-    # (A,) shared by all rows, log_std_old (N, A), a cotangent of 1 ---
-    N, A = 4096, 6
+
+def loss_cases(plk, rng, N, A, dev) -> tuple[dict, dict, tuple]:
+    """The fused loss's forward and backward kernels at N rows and A action
+    dims (log_std (A,) shared by all rows, log_std_old (N, A), a cotangent
+    of 1), each held against its plain version and timed; and the batch."""
     batch = loss_batch(rng, N, A, dev)
     coefs = (0.2, 0.5, 0.0)
     g = torch.ones((), device=dev)
@@ -305,6 +320,7 @@ def phase_kernels(dev):
     # and the cotangent, and writes dmean, dlog_std (A,) and dvalue
     fwd_moved = nbytes(*batch) + nbytes(*k_fwd)
     bwd_moved = nbytes(*batch[:5], *batch[7:], g) + nbytes(*k_bwd)
+    out = []
     for name, line, err, tol, moved, ops, kernel, plain in (
             ("ppo_loss_fwd", 134, fwd_err, TOL_LOSS_FWD, fwd_moved, LOSS_FWD_OPS_PER_ROW,
              lambda: plk.loss_fwd(*batch, *coefs), lambda: plk.loss_fwd_plain(*batch, *coefs)),
@@ -314,20 +330,45 @@ def phase_kernels(dev):
         ms, call_ms = timed(kernel, 200)
         plain_ms, plain_call_ms = timed(plain, 50)
         bound_ms, bound_by = bound(moved, N * (ops[0] * A + ops[1]))
-        out[name] = dict(
+        out.append(dict(
             name=name, route="cuda", source="surreal_tpu_torch/ops/csrc/ppo_loss.cu",
             replaces=f"surreal_tpu/ops/pallas_ppo_loss.py:{line}", max_abs_err=err, tol=tol,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            bytes=moved, call_ms=call_ms, plain_call_ms=plain_call_ms)
-    for k in out.values():
-        print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3e} (tol {k['tol']:.0e}); "
-              f"device time: kernel {k['ms'] * 1e3:.2f} us, plain {k['plain_ms'] * 1e3:.2f} us; "
-              f"call time: kernel {k['call_ms'] * 1e3:.2f} us, "
-              f"plain {k['plain_call_ms'] * 1e3:.2f} us; bound {k['bound_ms'] * 1e3:.3f} us "
-              f"by {k['bound_by']} ({k['bytes']} bytes at 3.35 TB/s)")
-        if not k["max_abs_err"] <= k["tol"]:
-            fail(f"kernel {k['name']} disagrees with its plain version: "
-                 f"{k['max_abs_err']} > {k['tol']}")
+            bytes=moved, call_ms=call_ms, plain_call_ms=plain_call_ms, shape=[N, A]))
+    return out[0], out[1], (batch, coefs)
+
+
+def print_kernel(k: dict) -> None:
+    print(f"kernel {k['name']} at {tuple(k['shape'])}: max_abs_err {k['max_abs_err']:.3e} (tol "
+          f"{k['tol']:.0e}); device time: kernel {k['ms'] * 1e3:.2f} us, plain "
+          f"{k['plain_ms'] * 1e3:.2f} us; call time: kernel {k['call_ms'] * 1e3:.2f} us, "
+          f"plain {k['plain_call_ms'] * 1e3:.2f} us; bound {k['bound_ms'] * 1e3:.3f} us "
+          f"by {k['bound_by']} ({k['bytes']} bytes at 3.35 TB/s)")
+    if not k["max_abs_err"] <= k["tol"]:
+        fail(f"kernel {k['name']} at {tuple(k['shape'])} disagrees with its plain version: "
+             f"{k['max_abs_err']} > {k['tol']}")
+
+
+SLIM = ("name", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+
+
+def phase_kernels(dev):
+    """Each kernel at the cheetah path's shapes (the kernels line's entry)
+    and at the finger-spin path's: GAE at (T, B) = (128, 256) and (128,
+    128), the loss at N = 4096 rows with A = 6 and A = 2."""
+    from surreal_tpu_torch.ops import gae_kernel, ppo_loss_kernel as plk, returns
+
+    rng = np.random.default_rng(0)
+    out = {"gae": gae_case(gae_kernel, returns, rng, *GAE_SHAPES[0], dev)}
+    fwd, bwd, (batch, coefs) = loss_cases(plk, rng, 4096, 6, dev)
+    out.update(ppo_loss_fwd=fwd, ppo_loss_bwd=bwd)
+    finger = {"gae": gae_case(gae_kernel, returns, rng, *FINGER_GAE, dev)}
+    f_fwd, f_bwd, _ = loss_cases(plk, rng, 4096, FINGER_ACTIONS, dev)
+    finger.update(ppo_loss_fwd=f_fwd, ppo_loss_bwd=f_bwd)
+    for name, k in out.items():
+        print_kernel(k)
+        print_kernel(finger[name])
+        k["at_finger_spin_shape"] = {f: finger[name][f] for f in SLIM}
     gae_at_shapes("this checkout", returns, dev, GAE_SHAPES[1:])
     print_autograd_times("this checkout", loss_autograd_times(plk, batch, coefs))
     return out
@@ -376,13 +417,13 @@ def phase_small_parity(dev):
         fail("the card's PPO update disagrees with the CPU's")
 
     env_gpu = make_env("cheetah-run", device=dev)
-    rows = torch.randint(0, env.num_reset_rows, (256,), generator=gen)
+    draw = env.draw_reset(256, gen)
     action = torch.rand(256, 6, generator=gen) * 2 - 1
     outs = []
     for e, d in ((env, "cpu"), (env_gpu, dev)):
-        s, _ = e.reset(256, reset_rows=rows.to(d))
+        s, _ = e.reset(256, reset_draw={k: x.to(d) for k, x in draw.items()})
         depth = engine._contact_kinematics(e.model, s.q)[1].cpu()
-        s2, ts2 = e.step(s, action.to(d), reset_rows=rows.to(d))
+        s2, ts2 = e.step(s, action.to(d), reset_draw={k: x.to(d) for k, x in draw.items()})
         outs.append((s2.qd.cpu(), ts2.reward.cpu(), depth))
     (qd_c, rew_c, depth_c), (qd_g, rew_g, depth_g) = outs
     keep = (((depth_c > 0) == (depth_g > 0)).all(1)
@@ -591,6 +632,43 @@ def new_cells_profile(ddpg_t, ddpg_times, lstm_t, lstm_times):
     print(json.dumps(out))
     if n_roll == 0 or n_upd == 0:
         fail("the profiler saw no device kernel in the recurrent PPO cell")
+
+
+def finger_profile(t, times):
+    """Device kernels and device busy time of the finger-spin cell under
+    torch.profiler (after every timing): a rollout cut to 4 of its 128
+    control steps, and one epoch of the update (4 of its 16 minibatch
+    steps; GAE and the advantage normalisation run once in it). The idle
+    shares are taken against the unprofiled times of the same parts."""
+    from surreal_tpu_torch.algos import ppo
+
+    steps = 4
+    short = dataclasses.replace(t.cfg, horizon=steps)
+    full, t.env_state, t.obs, t.ep_ret, _ = ppo.rollout(
+        t.cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.ep_ret, t.generator)
+
+    def rollout():
+        t.env_state, t.obs, t.ep_ret = ppo.rollout(
+            short, t.env, t._flatten, t.state, t.env_state, t.obs, t.ep_ret, t.generator)[1:4]
+
+    n_roll, busy_roll = profiled(rollout)
+    epoch = dataclasses.replace(t.cfg, epochs=1)
+    n_upd, busy_upd = profiled(lambda: ppo.update(epoch, t.state, full, t.generator))
+    roll_wall = times["ms_per_env_step"] * 1e-3 * steps
+    epoch_wall = times["update_s"] / t.cfg.epochs
+    out = {"phase": "ppo_finger_spin_profile", "rollout_steps_profiled": steps,
+           "minibatch_steps_profiled": t.cfg.num_minibatches, "rollout_kernels": n_roll,
+           "kernels_per_control_step": n_roll / steps,
+           "kernels_per_substep_approx": n_roll / steps / 2, "epoch_kernels": n_upd,
+           "kernels_per_minibatch_step": n_upd / t.cfg.num_minibatches,
+           "rollout_busy_s": busy_roll, "epoch_busy_s": busy_upd,
+           "unprofiled_s_of_the_same_rollout_steps": roll_wall,
+           "unprofiled_s_of_one_epoch": epoch_wall,
+           "rollout_idle_share": 1 - busy_roll / roll_wall,
+           "update_idle_share": 1 - busy_upd / epoch_wall}
+    print(json.dumps(out))
+    if n_roll == 0 or n_upd == 0:
+        fail("the profiler saw no device kernel in the finger-spin cell")
 
 
 def check_finite(label: str, m: dict) -> None:
@@ -840,6 +918,197 @@ def phase_serving(dev, trainer):
         fail(f"a served answer is {max(errs)} away from the module's forward")
     if not abs(swap_moved - 0.25) <= 1e-5:
         fail(f"update_params moved the answers by {swap_moved}, not by the 0.25 swapped in")
+
+
+# One task per baked asset other than cheetah's: (task, envs: the task's
+# recipe's num_envs in surreal_tpu/envs/recipes.py, physics substeps per
+# control step: the env module's).
+ENV_TASKS = {
+    "acrobot": ("acrobot-swingup", 256, 1),
+    "ball_in_cup": ("ball_in_cup-catch", 128, 10),
+    "cartpole": ("cartpole-balance", 256, 1),
+    "cartpole_2": ("cartpole-two_poles", 256, 1),
+    "cartpole_3": ("cartpole-three_poles", 256, 1),
+    "finger": ("finger-spin", 128, 2),
+    "hopper": ("hopper-stand", 128, 4),
+    "manipulator_ball": ("manipulator-bring_ball", 128, 10),
+    "manipulator_peg": ("manipulator-bring_peg", 128, 10),
+    "pendulum": ("pendulum-swingup", 256, 1),
+    "point_mass": ("point_mass-easy", 256, 1),
+    "reacher": ("reacher-easy", 256, 1),
+    "swimmer6": ("swimmer-swimmer6", 256, 15),
+    "swimmer15": ("swimmer-swimmer15", 256, 15),
+    "walker": ("walker-walk", 128, 10),
+}
+# The card's control step against the CPU's from the same state, actions
+# and reset draw, relative to max(1, max |CPU|): sinf/cosf differ by a few
+# ulps between the two, and the solves and Jacobi sweeps amplify that by
+# their conditioning over up to 15 substeps (the 15-link swimmer's mass
+# matrix has condition numbers ~1.5e5; tests/test_torch_envs_swimmer.py).
+# Envs within SWITCH_EPS of an active-set switch at any substep (a contact
+# depth, a rope stretch or a limit distance within it of 0, or a pair
+# whose capsule segments cross) are left out, at most a quarter of them.
+TOL_ENV_REL = {"swimmer15": 1e-2}
+TOL_ENV_REL_DEFAULT = 1e-3
+SWITCH_EPS = 1e-5
+
+
+def switch_margin(m, q) -> torch.Tensor:
+    """(B,) distance of each state to the nearest switch of the constraint
+    solver's active set: |depth| of every ground, wall and pair contact
+    candidate, |stretch| of every rope, the distance of every limited joint
+    to its bounds (a row is active iff its depth, stretch or violation is
+    > 0, so two float32 runs may take different rows within rounding of
+    a switch), and the distance between each pair's closest points (where
+    two capsules' segments cross it is 0 and the contact normal is rounding
+    noise). Also used by tests/torch_helpers.py."""
+    from surreal_tpu_torch.envs.physics import engine as te
+
+    parts = [torch.full((q.shape[0],), float("inf"), dtype=q.dtype, device=q.device)]
+    fkd = te.fk_dofs(m, q)
+    if m.ncon:
+        parts.append(te._contact_kinematics(m, q, fkd)[1].abs().amin(1))
+        if m.nwall:
+            parts.append(te._wall_kinematics(m, q, fkd)[2].abs().amin(1))
+    if m.npair:
+        depth = te._pair_kinematics(m, q, fkd)[2]
+        radii = torch.tensor(np.float32(m.geom_radius)[m.pair_geoms].sum(1), device=q.device)
+        parts += [depth.abs().amin(1), (radii - depth).amin(1)]
+    if m.nrope:
+        parts.append(te._rope_kinematics(m, q, fkd)[1].abs().amin(1))
+    lim = np.flatnonzero(m.limited)
+    if len(lim):
+        rng = torch.tensor(m.joint_range[lim], dtype=q.dtype, device=q.device)
+        parts.append(torch.minimum((q[:, lim] - rng[:, 0]).abs(),
+                                   (q[:, lim] - rng[:, 1]).abs()).amin(1))
+    return torch.stack(parts, 1).amin(1)
+
+
+def substep_margin(m, q, qd, ctrl, n_substeps) -> torch.Tensor:
+    """The least switch_margin over the states a control step passes."""
+    from surreal_tpu_torch.envs.physics import engine as te
+
+    one = te.step_rk4 if m.integrator == "rk4" else te.step_euler
+    margin = switch_margin(m, q)
+    for _ in range(n_substeps):
+        q, qd = one(m, q, qd, ctrl)[:2]
+        margin = torch.minimum(margin, switch_margin(m, q))
+    return margin
+
+
+def phase_envs(dev) -> None:
+    """Every other asset's env, one task each at its recipe's number of envs:
+    reset on the card from a seed with a quarter of the envs at their last
+    step, one control step on the card (auto-reset included) and the same
+    step on the CPU from the same state, actions and reset draw; the
+    median of 5 timed control steps on the card."""
+    from surreal_tpu_torch.envs import flatten_obs, make_env
+    from surreal_tpu_torch.envs.base import EnvState
+
+    for asset, (task, B, substeps) in ENV_TASKS.items():
+        env, env_cpu = make_env(task, device=dev), make_env(task, device="cpu")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state, _ = env.reset(B, gen)
+        t = torch.where(torch.arange(B, device=dev) % 4 == 0, env.episode_steps - 1, 7)
+        state = EnvState(state.q, state.qd, t.to(torch.int32))
+        action = torch.rand(B, env.action_dim, generator=gen, device=dev) * 2.4 - 1.2
+        draw = env.draw_reset(B, gen)
+        outs = {}
+        for d, e in ((dev, env), ("cpu", env_cpu)):
+            st = EnvState(*(x.to(d) for x in (state.q, state.qd, state.t)))
+            new, ts = e.step(st, action.to(d), reset_draw={k: v.to(d) for k, v in draw.items()})
+            outs[d] = {"q": new.q, "qd": new.qd, "reward": ts.reward, "done": ts.done,
+                       "obs": flatten_obs(ts.obs), "carry_obs": flatten_obs(ts.carry_obs)}
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            env.step(state, action, reset_draw=draw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        m = env_cpu.model
+        q_cpu, qd_cpu = state.q.cpu()[:, : m.nv], state.qd.cpu()[:, : m.nv]
+        keep = substep_margin(m, q_cpu, qd_cpu, action.cpu(), substeps) > SWITCH_EPS
+        gpu = {k: v.cpu() for k, v in outs[dev].items()}
+        cpu = outs["cpu"]
+        tol = TOL_ENV_REL.get(asset, TOL_ENV_REL_DEFAULT)
+        errs = {}
+        for k in ("q", "qd", "reward", "obs", "carry_obs"):
+            diff = (gpu[k] - cpu[k]).abs()[keep]
+            errs[k] = float(diff.max()) / max(1.0, float(cpu[k][keep].abs().max()))
+        row = {"asset": asset, "task": task, "num_envs": B, "substeps": substeps,
+               "excluded": int((~keep).sum()), "max_rel_err": errs, "tol": tol,
+               "resets": int(cpu["done"].sum()), "ms_per_control_step": float(np.median(times)),
+               "ms_per_control_step_all": times}
+        print("envs: " + json.dumps(row))
+        if not torch.equal(gpu["done"], cpu["done"]) or int(cpu["done"].sum()) < B // 4:
+            fail(f"{task}: the card's done flags differ from the CPU's, or no auto-reset ran")
+        if row["excluded"] > B // 4:
+            fail(f"{task}: {row['excluded']} of {B} envs within {SWITCH_EPS} of a switch")
+        if not all(np.isfinite(v) and v <= tol for v in errs.values()):
+            fail(f"{task}: the card's control step disagrees with the CPU's: {errs} > {tol}")
+
+
+FINGER_CFG = dict(num_minibatches=4, entropy_coef=0.005, lr_max_scale=2.0, fused_loss=True)
+
+
+def phase_finger(dev):
+    """PPO on finger-spin at its recipe (surreal_tpu/envs/recipes.py: 128
+    envs, 4 minibatches, entropy 0.005, lr_max_scale 2, hidden (64, 64);
+    the default horizon 128 and 4 epochs) with the fused loss. Returns the
+    trainer, the three kernels' launch counts read after its last update
+    (set to 0 before its first iteration) and its times."""
+    from surreal_tpu_torch.algos import ppo
+    from surreal_tpu_torch.train import PPOTrainer
+
+    cfg = ppo.PPOConfig(**FINGER_CFG)
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    t = PPOTrainer("finger-spin", cfg, num_envs=128, hidden=(64, 64), seed=0, device=dev)
+    kernels = path_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    warm_iters, timed_iters = 1, 2
+    t0 = time.perf_counter()
+    t.run(warm_iters, log_every=warm_iters)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    m = t.run(timed_iters, log_every=timed_iters)[-1]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    traj, t.env_state, t.obs, t.ep_ret, _ = ppo.rollout(
+        cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.ep_ret, t.generator)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    _, last = ppo.update(cfg, t.state, traj, t.generator)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    iters = warm_iters + timed_iters + 1
+    steps = cfg.epochs * cfg.num_minibatches
+    sec_per_iter = (t2 - t1) / timed_iters
+    out = {"phase": "ppo_finger_spin", "num_envs": 128, "hidden": [64, 64],
+           "horizon": cfg.horizon, "minibatch_rows": cfg.horizon * 128 // cfg.num_minibatches,
+           "warmup_s": t1 - t0, "s_per_iteration": sec_per_iter,
+           "env_steps_per_s": t.steps_per_iteration / sec_per_iter,
+           "rollout_s": t3 - t2, "ms_per_env_step": (t3 - t2) / cfg.horizon * 1e3,
+           "update_s": t4 - t3, "ms_per_minibatch_step": (t4 - t3) / steps * 1e3,
+           "kernel_launches": launches, "iterations": iters,
+           "launches_per_iteration": {n: v / iters for n, v in launches.items()},
+           "policy_loss": m["policy_loss"], "value_loss": m["value_loss"], "kl": m["kl"],
+           "entropy": m["entropy"], "reward_per_step": m["reward_per_step"],
+           "touch_max": float(traj.obs[..., 4:6].max()),
+           "max_memory_allocated": peak, "memory_allocated_before": held_before,
+           "peak_above_held_before": peak - held_before}
+    print(json.dumps(out))
+    check_finite("finger-spin PPO", {k: float(v) for k, v in last.items()} | m)
+    want = {"gae": iters, "ppo_loss_fwd": steps * iters, "ppo_loss_bwd": steps * iters}
+    if launches != want:
+        fail(f"finger-spin PPO launch counts {launches} != {want}")
+    if t.state.update_step != iters:
+        fail(f"update_step {t.state.update_step} != {iters}")
+    return t, launches, out
 
 
 def loss_timing(root: str) -> None:
@@ -1164,13 +1433,16 @@ def main():
     ddpg_trainer, ddpg_launches, ddpg_times = phase_ddpg(dev)
     lstm_trainer, lstm_launches, lstm_times = phase_lstm(dev)
     phase_serving(dev, trainer)
+    phase_envs(dev)
+    finger_trainer, finger_launches, finger_times = phase_finger(dev)
     breakdown(trainer)
     new_cells_profile(ddpg_trainer, ddpg_times, lstm_trainer, lstm_times)
+    finger_profile(finger_trainer, finger_times)
     for name, k in kernels.items():
         # every number is a reading: each path was driven with the counts at
         # 0 just before it and read just after its last update
         by_path = {"ppo": launches[name], "ppo_lstm": lstm_launches[name],
-                   "ddpg": ddpg_launches[name]}
+                   "ddpg": ddpg_launches[name], "ppo_finger": finger_launches[name]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         for extra in ("tol", "bytes", "call_ms", "plain_call_ms"):

@@ -1,4 +1,4 @@
 from surreal_tpu_torch.envs.base import Environment, flatten_obs, obs_flat_dim
-from surreal_tpu_torch.envs.registry import make_env
+from surreal_tpu_torch.envs.registry import available_envs, make_env
 
-__all__ = ["Environment", "flatten_obs", "make_env", "obs_flat_dim"]
+__all__ = ["Environment", "available_envs", "flatten_obs", "make_env", "obs_flat_dim"]

@@ -8,18 +8,32 @@ The reference writes one env as pure functions and `vmap`s it; here an
   the terminal observation (the bootstrap target) and `carry_obs` the
   observation of the returned, already reset state (the next policy input).
 
-Auto-reset rows are drawn from an explicit `torch.Generator`, or passed in
-as `reset_rows` (tests inject the reference's draw that way).
+Every env draws the random part of a new episode's start state with
+`draw_reset(batch, generator)`: a dict of named (batch, ...) tensors holding
+the sampled values, in the reference's ranges. `_init(draw)` builds
+(q, qd) from them (any rejection step runs there). `reset` and `step` take
+an injected `reset_draw` in place of a fresh one (tests inject the
+reference's draws, recomputed from its keys, that way).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 from typing import Any, Mapping
 
 import torch
 
+from surreal_tpu_torch.envs.physics.model import HINGE, PlanarModel
+
 Tensor = torch.Tensor
+
+# The baked assets are data files of the reference package, read in place.
+ASSET_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "surreal_tpu", "envs", "assets",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,12 +61,13 @@ class ArraySpec:
 
 
 class Environment:
-    """Subclasses implement `_init`, `_physics_step`, `_obs`, `_reward`,
-    each over a batch."""
+    """Subclasses implement `draw_reset`, `_init`, `_physics_step`, `_obs`,
+    `_reward`, each over a batch."""
 
     episode_steps: int = 1000
-    num_reset_rows: int  # size of the pool `_init` draws from
+    model: PlanarModel
     device: torch.device  # where the env batch lives
+    dtype: torch.dtype
 
     def obs_spec(self) -> Mapping[str, ArraySpec]:
         raise NotImplementedError
@@ -64,8 +79,12 @@ class Environment:
     def action_dim(self) -> int:
         return self.action_spec().shape[0]
 
-    def _init(self, rows: Tensor) -> tuple[Tensor, Tensor]:
-        """Start state (q, qd) of new episodes from reset-pool rows (B,)."""
+    def draw_reset(self, batch: int, generator: torch.Generator) -> dict[str, Tensor]:
+        """The random values that `_init` turns into start states."""
+        raise NotImplementedError
+
+    def _init(self, draw: Mapping[str, Tensor]) -> tuple[Tensor, Tensor]:
+        """Start state (q, qd) of new episodes from a reset draw."""
         raise NotImplementedError
 
     def _physics_step(self, q: Tensor, qd: Tensor, action: Tensor) -> tuple[Tensor, Tensor]:
@@ -77,15 +96,24 @@ class Environment:
     def _reward(self, q: Tensor, qd: Tensor, action: Tensor) -> Tensor:
         raise NotImplementedError
 
-    def draw_reset_rows(self, batch: int, generator: torch.Generator) -> Tensor:
-        return torch.randint(0, self.num_reset_rows, (batch,), generator=generator,
-                             device=generator.device)
+    def _joint_range(self) -> Tensor:
+        """The model's joint ranges (nv, 2) on the env's device and dtype."""
+        return self.model.tensor("joint_range", torch.empty(0, device=self.device,
+                                                            dtype=self.dtype))
+
+    def _uniform(self, shape, generator: torch.Generator, lo=0.0, hi=1.0) -> Tensor:
+        """U(lo, hi) of `shape` on the env's device; lo and hi broadcast."""
+        u = torch.rand(shape, generator=generator, device=self.device, dtype=self.dtype)
+        return lo + u * (hi - lo)
+
+    def _normal(self, shape, generator: torch.Generator) -> Tensor:
+        return torch.randn(shape, generator=generator, device=self.device, dtype=self.dtype)
 
     def reset(self, batch: int, generator: torch.Generator | None = None,
-              reset_rows: Tensor | None = None) -> tuple[EnvState, Timestep]:
-        if reset_rows is None:
-            reset_rows = self.draw_reset_rows(batch, generator)
-        q, qd = self._init(reset_rows)
+              reset_draw: Mapping[str, Tensor] | None = None) -> tuple[EnvState, Timestep]:
+        if reset_draw is None:
+            reset_draw = self.draw_reset(batch, generator)
+        q, qd = self._init(reset_draw)
         state = EnvState(q=q, qd=qd, t=torch.zeros(batch, dtype=torch.int32, device=q.device))
         obs = self._obs(q, qd)
         ts = Timestep(obs=obs, carry_obs=obs, reward=q.new_zeros(batch),
@@ -94,7 +122,7 @@ class Environment:
         return state, ts
 
     def step(self, state: EnvState, action: Tensor, generator: torch.Generator | None = None,
-             reset_rows: Tensor | None = None) -> tuple[EnvState, Timestep]:
+             reset_draw: Mapping[str, Tensor] | None = None) -> tuple[EnvState, Timestep]:
         """Steps physics; auto-resets the envs whose episode ended (the
         returned Timestep carries their terminal obs and reward)."""
         q, qd = self._physics_step(state.q, state.qd, action)
@@ -113,18 +141,22 @@ class Environment:
         reward = torch.where(diverged, torch.zeros_like(reward), reward)
         # Auto-reset: the fresh state is computed for every env and selected
         # by `done`, as in the reference.
-        if reset_rows is None:
-            reset_rows = self.draw_reset_rows(q.shape[0], generator)
-        q0, qd0 = self._init(reset_rows)
-        d = done[:, None]
-        new_state = EnvState(q=torch.where(d, q0, q), qd=torch.where(d, qd0, qd),
+        if reset_draw is None:
+            reset_draw = self.draw_reset(q.shape[0], generator)
+        q0, qd0 = self._init(reset_draw)
+        new_state = EnvState(q=_pick(done, q0, q), qd=_pick(done, qd0, qd),
                              t=torch.where(done, torch.zeros_like(t), t))
         obs0 = self._obs(q0, qd0)
-        carry_obs = {k: torch.where(d, obs0[k], obs[k]) for k in obs}
-        obs = {k: torch.where(diverged[:, None], obs0[k], obs[k]) for k in obs}
+        carry_obs = {k: _pick(done, obs0[k], obs[k]) for k in obs}
+        obs = {k: _pick(diverged, obs0[k], obs[k]) for k in obs}
         ts = Timestep(obs=obs, carry_obs=carry_obs, reward=reward,
                       discount=torch.ones_like(reward), done=done)
         return new_state, ts
+
+
+def _pick(mask: Tensor, a: Tensor, b: Tensor) -> Tensor:
+    """Per env: a where mask (B,) is set, else b; a and b are (B, ...)."""
+    return torch.where(mask.view(-1, *[1] * (a.ndim - 1)), a, b)
 
 
 def flatten_obs(obs: Mapping[str, Tensor]) -> Tensor:
@@ -145,3 +177,36 @@ def obs_flat_dim(env: Environment) -> int:
         shape = spec[k].shape
         total += shape[0] if shape else 1
     return total
+
+
+def draw_limited_and_rotational(env: Environment, batch: int,
+                                generator: torch.Generator) -> dict[str, Tensor]:
+    """dm_control's `randomize_limited_and_rotational_joints` draw (walker,
+    hopper): every dof's U(joint range) and U(−π, π); `init_limited_and_
+    rotational` keeps the first on limited joints, the second on unlimited
+    hinges and 0 on unlimited slides."""
+    rng, nv = env._joint_range(), env.model.nv
+    return {"u_lim": env._uniform((batch, nv), generator, rng[:, 0], rng[:, 1]),
+            "u_rot": env._uniform((batch, nv), generator, -math.pi, math.pi)}
+
+
+def init_limited_and_rotational(env: Environment, draw: Mapping[str, Tensor]):
+    m = env.model
+    like = draw["u_lim"]
+    limited = m.tensor("limited", like).bool()
+    is_hinge = m.tensor("is_hinge_dof", like, lambda: [t == HINGE for t in m.dof_type]).bool()
+    q = torch.where(limited, draw["u_lim"],
+                    torch.where(is_hinge, draw["u_rot"], torch.zeros_like(like)))
+    return q, torch.zeros_like(q)
+
+
+def first_free(candidates, depths, *others):
+    """Per env, the first of K candidates (B, K, ...) whose penetration depth
+    (B, K) is ≤ 0, else the shallowest one; `others` (B, K, ...) are
+    gathered at the same index. The reference's rejection step."""
+    free = depths <= 0.0
+    idx = torch.where(free.any(1), torch.argmax(free.to(torch.int32), 1),
+                      torch.argmin(depths, 1))
+    rows = torch.arange(depths.shape[0], device=depths.device)
+    picked = [x[rows, idx] for x in (candidates, *others)]
+    return picked[0] if not others else picked

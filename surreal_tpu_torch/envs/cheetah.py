@@ -1,8 +1,8 @@
 """Cheetah-run (port of surreal_tpu/envs/cheetah.py).
 
 Episode start states come from the reference's pool of pre-settled states
-(`cheetah_pool.npz`), read in place with the baked model; reset draws a
-pool row. obs = qpos[1:] + qvel; reward = tolerance(torso-subtree COM
+(`cheetah_pool.npz`), read in place with the baked model; the reset draw is
+a pool row. obs = qpos[1:] + qvel; reward = tolerance(torso-subtree COM
 x-velocity, bounds=(10, inf), margin=10, linear).
 """
 
@@ -15,14 +15,10 @@ import torch
 
 from surreal_tpu_torch.device import resolve as resolve_device
 from surreal_tpu_torch.envs import base, rewards
+from surreal_tpu_torch.envs.base import ASSET_DIR
 from surreal_tpu_torch.envs.physics import engine
 from surreal_tpu_torch.envs.physics import model as pmodel
 
-# The baked assets are data files of the reference package, read in place.
-ASSET_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "surreal_tpu", "envs", "assets",
-)
 _ASSET = os.path.join(ASSET_DIR, "cheetah.npz")
 _POOL = os.path.join(ASSET_DIR, "cheetah_pool.npz")
 
@@ -42,7 +38,6 @@ class CheetahRun(base.Environment):
         pool = np.load(_POOL)
         self._pool_q = torch.as_tensor(pool["q"].astype(np.float32), device=self.device).to(dtype)
         self._pool_qd = torch.as_tensor(pool["qd"].astype(np.float32), device=self.device).to(dtype)
-        self.num_reset_rows = self._pool_q.shape[0]
 
     def obs_spec(self):
         return {
@@ -53,8 +48,12 @@ class CheetahRun(base.Environment):
     def action_spec(self):
         return base.ArraySpec((6,), self.dtype, -1.0, 1.0)
 
-    def _init(self, rows):
-        return self._pool_q[rows], self._pool_qd[rows]
+    def draw_reset(self, batch, generator):
+        return {"row": torch.randint(0, self._pool_q.shape[0], (batch,), generator=generator,
+                                     device=self.device)}
+
+    def _init(self, draw):
+        return self._pool_q[draw["row"]], self._pool_qd[draw["row"]]
 
     def _physics_step(self, q, qd, action):
         return self._step_fn(q, qd, action)

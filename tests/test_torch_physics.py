@@ -16,6 +16,8 @@ sets differ, or with a contact within one float32 spacing of body heights
 velocities; the tests assert that such envs are rare.
 """
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -69,8 +71,15 @@ def _t(*xs):
     return [torch.tensor(np.asarray(x)) for x in xs]
 
 
-def test_model_load_matches_reference(data):
-    mj, mt = data["mj"], data["mt"]
+ASSETS = sorted(p.removesuffix(".npz") for p in os.listdir(ASSET_DIR)
+                if p.endswith(".npz") and not p.endswith("_pool.npz"))
+
+
+@pytest.mark.parametrize("asset", ASSETS)
+def test_model_load_matches_reference(asset):
+    """Every field of every baked asset, the optional ones included."""
+    path = f"{ASSET_DIR}/{asset}.npz"
+    mj, mt = jm.load(path), tm.load(path)
     for f in jm._ARRAY_FIELDS + jm._OPT_ARRAY_FIELDS:
         a, b = getattr(mj, f), getattr(mt, f)
         assert (a is None and b is None) or np.array_equal(a, b), f
@@ -137,19 +146,10 @@ def test_step_euler_matches_reference(data):
         _close(a, b, TOL_SOLVE, rows=keep)
 
 
-def test_unported_engine_branches_raise(data):
-    mt = data["mt"]
-    q = torch.tensor(data["q"])
-    for kw in ({"integrator": "rk4"}, {"implicit_impulse": True},
-               {"frictionloss": np.ones(9)}, {"fluid_lin": np.ones((7, 2))}):
-        with pytest.raises(NotImplementedError):
-            te.step_euler(mt.replace(**kw), q, q, torch.zeros(B, 6))
-
-
 def test_env_step_with_auto_reset_matches_reference(data):
     """CheetahRun.step on pool states, a quarter of them at t = 999 so the
     step ends their episode; the reference's reset draw (a pool row from
-    each env's key) is injected as `reset_rows`."""
+    each env's key) is injected as `reset_draw`."""
     q, qd, ctrl = data["q"], data["qd"], data["ctrl"]
     t = np.where(np.arange(B) % 4 == 0, 999, 7).astype(np.int32)
     keys = jax.random.split(jax.random.PRNGKey(5), B)
@@ -162,7 +162,7 @@ def test_env_step_with_auto_reset_matches_reference(data):
 
     tenv = make_env("cheetah-run", device="cpu")
     tstate = EnvState(*_t(q, qd, t))
-    new_t, ts_t = tenv.step(tstate, *_t(ctrl), reset_rows=torch.tensor(rows))
+    new_t, ts_t = tenv.step(tstate, *_t(ctrl), reset_draw={"row": torch.tensor(rows)})
 
     done = np.asarray(ts_j.done)
     assert done.sum() == B // 4
@@ -187,10 +187,10 @@ def test_env_step_divergence_guard():
     state, _ = env.reset(4, gen)
     q = state.q.clone()
     q[1, 4] = float("nan")
-    rows = torch.tensor([0, 1, 2, 3])
-    new, ts = env.step(EnvState(q, state.qd, state.t), torch.zeros(4, 6), reset_rows=rows)
+    draw = {"row": torch.tensor([0, 1, 2, 3])}
+    new, ts = env.step(EnvState(q, state.qd, state.t), torch.zeros(4, 6), reset_draw=draw)
     assert ts.done.tolist() == [False, True, False, False]
     assert float(ts.reward[1]) == 0.0
-    q0, qd0 = env._init(rows)
+    q0, qd0 = env._init(draw)
     assert torch.equal(new.q[1], q0[1]) and torch.equal(ts.obs["velocity"][1], qd0[1])
     assert torch.isfinite(flatten_obs(ts.obs)).all()

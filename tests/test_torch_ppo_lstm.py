@@ -121,8 +121,8 @@ class RecordingResets(ScriptedResets):
         super().__init__(rows)
         self.timesteps = []
 
-    def step(self, state, action, generator=None, reset_rows=None):
-        state, ts = super().step(state, action, generator, reset_rows)
+    def step(self, state, action, generator=None, reset_draw=None):
+        state, ts = super().step(state, action, generator, reset_draw)
         self.timesteps.append(ts)
         return state, ts
 
