@@ -5,6 +5,7 @@
     python3 chip_smoke.py --loss-sweep
     python3 chip_smoke.py --gae-timing [ROOT]
     python3 chip_smoke.py --gae-sweep
+    python3 chip_smoke.py --learn [DIR] [CLI FLAGS]
 
 Phases, each of which exits non-zero on failure:
   1. prints the card (nvidia-smi name, power limit) and the torch version;
@@ -13,17 +14,20 @@ Phases, each of which exits non-zero on failure:
   3. runs each kernel at the main path's shapes against its plain PyTorch
      version on the card, and times both with CUDA events, and again at the
      finger-spin path's shapes (GAE at (T, B) = (128, 128), the loss at
-     N = 4096 rows with A = 2); checks and times GAE at the recipes' other
-     two (T, B) too; times the fused loss's forward and backward as
-     autograd runs them;
-  4. checks the slice on a small input: one PPO update on the card (kernels)
-     against the same update on the CPU (plain versions), and one batched
-     cheetah env step on the card against the CPU;
+     N = 4096 rows with A = 2) and, for the loss, at the CLI cartpole
+     path's (A = 1); checks and times GAE at the recipes' other two (T, B)
+     too; times the fused loss's forward and backward as autograd runs them;
+  4. checks the slice on a small input: one PPO update on the card (loss
+     kernels; GAE by the reference's default, the torch scan) against the
+     same update on the CPU (plain versions), the GAE kernel (backend
+     "pallas") on the card against the update's GAE on the CPU, and one
+     batched cheetah env step on the card against the CPU;
   5. runs the main path, PPO on cheetah-run at bench.py's configuration
      (256 envs, (256, 256) MLP, horizon 128, 4 epochs x 8 minibatches,
      fused loss), for 1 warm-up and 3 timed iterations, and checks from the
-     launch counters that every iteration launched the GAE kernel once and
-     the loss forward and backward kernels 32 times each;
+     launch counters that every iteration launched the loss forward and
+     backward kernels 32 times each and the GAE kernel never (the
+     reference's PPO takes its default GAE, the XLA scan);
   6. checks one block of DDPG updates on the card against the same block on
      the CPU, from the same state, replay contents and indices;
   7. runs DDPG on cheetah-run at the recipe's configuration (256 envs, actor
@@ -38,9 +42,8 @@ Phases, each of which exits non-zero on failure:
      an LSTM of 128, horizon 128, 4 epochs x 8 minibatches of 32 whole
      sequences) for 1 warm-up and 2 timed iterations, then one more split
      into rollout and update; checks from the launch counters, set to 0
-     before its first iteration, that every iteration launched the GAE
-     kernel exactly once and the loss kernels never, and that the carry is
-     in use;
+     before its first iteration, that it launched none of the kernels (the
+     reference's recurrent PPO uses neither), and that the carry is in use;
   9. serves the PPO slice's network and Z-filter over TCP on 127.0.0.1:
      5 requests of a (256, 17) batch, a parameter swap and one more, each
      answer held against the module's own forward on the card;
@@ -56,23 +59,41 @@ Phases, each of which exits non-zero on failure:
      128, 4 epochs x 4 minibatches of 4096 rows, entropy 0.005, fused loss)
      for 1 warm-up and 2 timed iterations, then one more split into rollout
      and update; checks from the launch counters, set to 0 before its first
-     iteration, that every iteration launched the GAE kernel once and each
-     loss kernel 16 times;
- 12. the profiler checks of the PPO slice: times one more iteration split
+     iteration, that every iteration launched each loss kernel 16 times and
+     the GAE kernel never;
+ 12. the session layer and the CLI (surreal_tpu_torch.cli.main, in this
+     process): `envs` lists the 26 names; `train ppo` on cartpole-balance at
+     its recipe's full width (256 envs, (256, 256), horizon 128, 4 epochs x
+     8 minibatches of 4096 rows, entropy 0.01) with the fused loss for 3
+     iterations and a checkpoint each, into a temporary directory; checks
+     from the counters, set to 0 before it, that each iteration launched
+     each loss kernel 32 times and GAE never, the checkpoints' steps and
+     that config.json is generate_configs' output; the same command to 5
+     iterations must resume at iteration 3; the 98,304-step checkpoint
+     loaded into a fresh trainer equals what was saved, bit for bit;
+     `eval --best` over 16 episodes; the DDPG cell of phase 7 (its ring of
+     999,936 transitions) saved and restored into a fresh trainer, every
+     tensor equal, and equal again after one more iteration of both; one
+     cartpole iteration with debug_checks beside an unchecked one; and
+     `bench` with BENCH_WARMUP_ITERS=1 BENCH_ITERS=2;
+ 13. the profiler checks of the PPO slice: times one more iteration split
      into rollout and update, profiles another for the device's idle share,
      and profiles one minibatch step of the update for its loss kernels (2:
      one forward, one backward), a forward and a backward of
-     fused_clip_loss and one call of returns.gae (one device kernel each).
-     torch.profiler stays attached to the process once used and slows every
-     later launch, so it comes last and nothing is timed after it;
- 13. profiles the DDPG cell (one rollout, one update block), the recurrent
+     fused_clip_loss and one call of returns.gae with backend "pallas" (one
+     device kernel each). torch.profiler stays attached to the process once
+     used and slows every later launch, so it comes last and nothing is
+     timed after it;
+ 14. profiles the DDPG cell (one rollout, one update block), the recurrent
      PPO cell (a rollout of 16 steps, one epoch of 8 minibatch steps) and
      the finger-spin cell (a rollout of 4 steps, one epoch of 4 minibatch
      steps) for their device kernels and device busy time, held against the
      unprofiled times of the same parts from phases 7, 8 and 11.
-Phases 6 to 9, 11 and 13 print one JSON object each (three in phase 13),
-phase 10 one per task. The line before the card's is a JSON object with
-one entry per kernel; the last line is {"ok": true, "device": {...}}.
+Phases 6 to 9, 11, 12 and 14 print one JSON object each (three in phase
+14), phase 10 one per task. The whole run's time follows; the line before
+the card's is a JSON object with one entry per kernel (GAE, on no trainer
+path since the reference's default is the XLA scan, is still held by
+phases 3, 4 and 13); the last line is {"ok": true, "device": {...}}.
 
 With --loss-timing, only phase 1 and the autograd timing of phase 3 run,
 on the surreal_tpu_torch package under ROOT (default: this checkout), so
@@ -86,17 +107,31 @@ ROOT is held against its plain version and timed at the recipes' three
 gae.cu at other (columns, chunks, steps) per block, each held against the
 plain version and timed twice beside an empty launch of the same grid and
 beside a kernel of that grid that only loads the inputs and stores the
-outputs (the launch plus one memory round trip).
+outputs (the launch plus one memory round trip). With --learn, phases 1
+and 2 run, then cartpole-balance PPO is trained through the CLI to its
+recipe's budget of 4,000,000 env steps with the fused loss (~15 min),
+results under DIR (default: a temporary directory), and the eval curve and
+a final 32-episode evaluation are printed; it fails below a return of 900.
+CLI FLAGS after DIR go to the train command after the recipe's, for runs
+that diagnose a score (--session.seed, --learner.fused_loss false,
+--session.log_every_iterations).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import functools
+import inspect
+import io
 import json
+import logging
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -116,6 +151,7 @@ TOL_GAE = 1e-4  # T is split into chunks and recombined, each step one fused mul
 GAE_SHAPES = ((128, 256), (256, 128), (256, 256))
 FINGER_GAE = (128, 128)  # finger-spin's recipe: horizon 128, 128 envs
 FINGER_ACTIONS = 2
+CARTPOLE_ACTIONS = 1  # cartpole-balance, the CLI phase's path: one actuator
 TOL_LOSS_FWD = 1e-5  # the loss and 5 means of O(1) terms; 4096-term sums in another order
 TOL_LOSS_BWD = 1e-6  # per-row gradients of size ~1e-4 (they carry 1/N), and their row sum
 # The env step on the card against the CPU: sinf/cosf in FK differ by a few
@@ -274,12 +310,17 @@ def gae_error(kernel, plain, args) -> float:
 
 
 def gae_at_shapes(label: str, returns, dev, shapes=GAE_SHAPES) -> None:
-    """`returns.gae` held against `returns.gae_plain` and timed at `shapes`."""
+    """`returns.gae` with the kernel asked for (backend "pallas"; packages
+    from before the argument took the kernel by default) held against
+    `returns.gae_plain` and timed at `shapes`."""
+    kernel = returns.gae
+    if "backend" in inspect.signature(returns.gae).parameters:
+        kernel = functools.partial(returns.gae, backend="pallas")
     rng = np.random.default_rng(1)
     for T, B in shapes:
         args = gae_batch(rng, T, B, dev)
-        err = gae_error(returns.gae, returns.gae_plain, args)
-        ms, call_ms = timed(lambda: returns.gae(*args), 200)
+        err = gae_error(kernel, returns.gae_plain, args)
+        ms, call_ms = timed(lambda: kernel(*args), 200)
         moved = nbytes(*args[:5]) + 2 * nbytes(args[0])  # five inputs, two outputs
         print(f"gae ({label}) at (T, B) = ({T}, {B}): max_abs_err {err:.3e} (tol "
               f"{TOL_GAE:.0e}), device {ms * 1e3:.2f} us, call {call_ms * 1e3:.2f} us, bound "
@@ -353,9 +394,10 @@ SLIM = ("name", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"
 
 
 def phase_kernels(dev):
-    """Each kernel at the cheetah path's shapes (the kernels line's entry)
-    and at the finger-spin path's: GAE at (T, B) = (128, 256) and (128,
-    128), the loss at N = 4096 rows with A = 6 and A = 2."""
+    """Each kernel at the cheetah path's shapes (the kernels line's entry),
+    at the finger-spin path's and at the CLI cartpole path's: GAE at (T, B)
+    = (128, 256) and (128, 128), the loss at N = 4096 rows with A = 6, 2
+    and 1."""
     from surreal_tpu_torch.ops import gae_kernel, ppo_loss_kernel as plk, returns
 
     rng = np.random.default_rng(0)
@@ -365,23 +407,30 @@ def phase_kernels(dev):
     finger = {"gae": gae_case(gae_kernel, returns, rng, *FINGER_GAE, dev)}
     f_fwd, f_bwd, _ = loss_cases(plk, rng, 4096, FINGER_ACTIONS, dev)
     finger.update(ppo_loss_fwd=f_fwd, ppo_loss_bwd=f_bwd)
+    c_fwd, c_bwd, _ = loss_cases(plk, rng, 4096, CARTPOLE_ACTIONS, dev)
+    cartpole = {"ppo_loss_fwd": c_fwd, "ppo_loss_bwd": c_bwd}
     for name, k in out.items():
         print_kernel(k)
         print_kernel(finger[name])
         k["at_finger_spin_shape"] = {f: finger[name][f] for f in SLIM}
+        if name in cartpole:
+            print_kernel(cartpole[name])
+            k["at_cartpole_shape"] = {f: cartpole[name][f] for f in SLIM}
     gae_at_shapes("this checkout", returns, dev, GAE_SHAPES[1:])
     print_autograd_times("this checkout", loss_autograd_times(plk, batch, coefs))
     return out
 
 
 def phase_small_parity(dev):
-    """The card's update (GAE and loss kernels) against the CPU's (plain
-    versions) on one small trajectory, and one env step on both devices."""
+    """The card's update (loss kernels; GAE by the reference's default, the
+    torch scan) against the CPU's (plain versions) on one small trajectory,
+    the GAE kernel (backend "pallas") on the card against the update's GAE
+    on the CPU on the same trajectory, and one env step on both devices."""
     from surreal_tpu_torch.algos import ppo
     from surreal_tpu_torch.envs import flatten_obs, make_env
     from surreal_tpu_torch.envs.physics import engine
     from surreal_tpu_torch.models.actor_critic import PPOActorCritic
-    from surreal_tpu_torch.ops import gae_kernel, ppo_loss_kernel as plk
+    from surreal_tpu_torch.ops import gae_kernel, ppo_loss_kernel as plk, returns
 
     cfg = ppo.PPOConfig(horizon=16, epochs=2, num_minibatches=2, fused_loss=True)
     B = 32  # 16 x 32 = 512 rows, minibatches of 256: the fused gate admits
@@ -404,9 +453,19 @@ def phase_small_parity(dev):
         st, metrics = ppo.update(cfg, st, tr, None, perms.to(d))
         results[d] = ({k: p.detach().cpu() for k, p in net_d.named_parameters()},
                       {k: float(x) for k, x in metrics.items()})
+    gae_args = (traj.reward, traj.value, traj.next_value, traj.discount, traj.done,
+                cfg.gamma, cfg.lam)
+    gae_card = returns.gae(*(x.to(dev) for x in gae_args[:5]), *gae_args[5:], backend="pallas")
+    gae_err = max((a.cpu() - b).abs().max().item()
+                  for a, b in zip(gae_card, returns.gae(*gae_args)))
     after = (gae_kernel.GAE.launches, plk.FWD.launches, plk.BWD.launches)
     if [a - b for a, b in zip(after, before)] != [1, 4, 4]:
-        fail(f"small update did not run through the kernels: {before} -> {after}")
+        fail(f"the small update and GAE did not run through the kernels: {before} -> {after} "
+             "(expected the loss kernels 4 times each in the update, GAE once when asked)")
+    print(f"gae kernel on the card vs the update's gae on the cpu: max_abs_err {gae_err:.3e} "
+          f"(tol {TOL_GAE:.0e})")
+    if not gae_err <= TOL_GAE:
+        fail("the GAE kernel on the card disagrees with the update's GAE on the CPU")
     p_err = max((results["cpu"][0][k] - results[dev][0][k]).abs().max().item()
                 for k in results["cpu"][0])
     m_err = max(abs(results["cpu"][1][k] - results[dev][1][k]) / max(1.0, abs(results["cpu"][1][k]))
@@ -467,7 +526,7 @@ def phase_slice(dev):
     t2 = time.perf_counter()
     launches = {n: k.launches for n, k in kernels.items()}
     iters = warm_iters + timed_iters
-    want = {"gae": iters, "ppo_loss_fwd": 32 * iters, "ppo_loss_bwd": 32 * iters}
+    want = {"gae": 0, "ppo_loss_fwd": 32 * iters, "ppo_loss_bwd": 32 * iters}
     print(f"slice launches over {iters} iterations: {launches} (expected {want})")
     if launches != want:
         fail(f"main path launch counts {launches} != {want}")
@@ -528,10 +587,10 @@ def breakdown(trainer):
 
     gae_names = device_kernels(lambda: returns.gae(
         traj.reward, traj.value, traj.next_value, traj.discount, traj.done, t.cfg.gamma,
-        t.cfg.lam))
-    print(f"returns.gae on the main path's trajectory runs {gae_names}")
+        t.cfg.lam, backend="pallas"))
+    print(f"returns.gae(backend='pallas') on the main path's trajectory runs {gae_names}")
     if len(gae_names) != 1 or "gae_kernel" not in gae_names[0]:
-        fail("one call of returns.gae is not one device kernel")
+        fail("one call of returns.gae(backend='pallas') is not one device kernel")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         iteration()
@@ -820,8 +879,8 @@ def phase_lstm(dev):
     t.run(warm_iters, log_every=warm_iters)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    if gae_kernel.GAE.launches != warm_iters:
-        fail(f"the recurrent warm-up launched GAE {gae_kernel.GAE.launches} times, not 1")
+    if gae_kernel.GAE.launches:
+        fail(f"the recurrent warm-up launched GAE {gae_kernel.GAE.launches} times, not 0")
     m = t.run(timed_iters, log_every=timed_iters)[-1]
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -850,8 +909,9 @@ def phase_lstm(dev):
            "peak_above_held_before": peak - held_before}
     print(json.dumps(out))
     check_finite("lstm slice", {k: float(v) for k, v in last.items()} | m)
-    if launches["gae"] != iters:
-        fail(f"{iters} recurrent iterations launched the GAE kernel {launches['gae']} times")
+    if launches["gae"]:
+        fail(f"{iters} recurrent iterations launched the GAE kernel {launches['gae']} times: "
+             "the reference's recurrent GAE is its default, the XLA scan")
     if launches["ppo_loss_fwd"] or launches["ppo_loss_bwd"]:
         fail("the recurrent path launched the fused loss, which the reference does not use there")
     if not carry_abs > 0:
@@ -1103,12 +1163,297 @@ def phase_finger(dev):
            "peak_above_held_before": peak - held_before}
     print(json.dumps(out))
     check_finite("finger-spin PPO", {k: float(v) for k, v in last.items()} | m)
-    want = {"gae": iters, "ppo_loss_fwd": steps * iters, "ppo_loss_bwd": steps * iters}
+    want = {"gae": 0, "ppo_loss_fwd": steps * iters, "ppo_loss_bwd": steps * iters}
     if launches != want:
         fail(f"finger-spin PPO launch counts {launches} != {want}")
     if t.state.update_step != iters:
         fail(f"update_step {t.state.update_step} != {iters}")
     return t, launches, out
+
+
+CARTPOLE_ITER = 256 * 128  # env steps per iteration of the cartpole-balance recipe
+CARTPOLE_FLAGS = ["--env.env_name", "cartpole-balance", "--learner.fused_loss", "true"]
+EVIDENCE_EVAL = 970.585205078125  # results/cartpole_balance_ppo_r5.txt, EVAL over 32 episodes
+
+
+class LogLines(logging.Handler):
+    """Keeps the messages the port logs under `surreal_tpu_torch` while in a
+    `with` block."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        logging.getLogger("surreal_tpu_torch").addHandler(self)
+        return self.lines
+
+    def __exit__(self, *exc):
+        logging.getLogger("surreal_tpu_torch").removeHandler(self)
+        return False
+
+
+def cli_stdout(argv) -> str:
+    """Runs the port's CLI in this process; returns what it printed."""
+    from surreal_tpu_torch.cli.main import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if cli(argv) != 0:
+            fail(f"the CLI returned non-zero for {argv}")
+    return buf.getvalue()
+
+
+def evals_logged(lines) -> list[dict]:
+    out = []
+    for line in lines:
+        if line.startswith("eval @ "):
+            steps, rest = line[len("eval @ "):].split(" steps: ")
+            mean, std = rest.split(" ± ")
+            out.append({"env_steps": int(float(steps)), "return_mean": float(mean),
+                        "return_std": float(std)})
+    return out
+
+
+def state_leaves(tree, path="fs"):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from state_leaves(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from state_leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def unequal_leaves(a, b) -> list[str]:
+    """Paths where two full states differ (bitwise for tensors, on the host)."""
+    la, lb = list(state_leaves(a)), list(state_leaves(b))
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return ["<structure>"]
+    bad = []
+    for (path, x), (_, y) in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or not torch.equal(x.cpu(), y.cpu()):
+                bad.append(path)
+        elif x != y:
+            bad.append(path)
+    return bad
+
+
+def phase_cli(dev, ddpg_t) -> dict:
+    """The session layer and the CLI on the card: `envs`; cartpole-balance
+    PPO trained through the CLI at the recipe's full width with the fused
+    loss for 3 iterations, a checkpoint each, killed and resumed to 5; the
+    98,304-step checkpoint loaded into a fresh trainer; `eval --best`; the
+    DDPG cell's full state (its ring of 999,936 transitions) saved and
+    restored into a fresh trainer, and one more iteration of both; one
+    checked iteration (debug_checks) beside an unchecked one; and `bench`.
+    Returns the loss kernels' launches on the CLI's training runs."""
+    from surreal_tpu_torch.cli.configs import generate_configs, to_algo_config
+    from surreal_tpu_torch.cli.main import _build_trainer, _parse_overrides
+    from surreal_tpu_torch.config import Config
+    from surreal_tpu_torch.envs import available_envs
+    from surreal_tpu_torch.train import DDPGTrainer, PPOTrainer
+    from surreal_tpu_torch.train.checkpoint import STATE_FILE, Checkpointer
+
+    t_phase = time.perf_counter()
+    out = {"phase": "cli"}
+    names = cli_stdout(["envs"]).split()
+    out["envs"] = len(names)
+    if names != available_envs() or len(names) != 26:
+        fail(f"`envs` listed {names}")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    kernels = path_kernels()
+    try:
+        flags = [*CARTPOLE_FLAGS, "--session.checkpoint_every_steps", str(CARTPOLE_ITER),
+                 "--session.results_dir", root, "--session.experiment_name", "cartpole",
+                 "--device", str(dev)]
+        exp = os.path.join(root, "cartpole")
+        for k in kernels.values():
+            k.launches = 0
+        with LogLines() as lines:
+            t0 = time.perf_counter()
+            cli_stdout(["train", "ppo", *flags, "--session.total_env_steps",
+                        str(3 * CARTPOLE_ITER)])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            launches_3 = {n: k.launches for n, k in kernels.items()}
+            latest = sorted(int(s) for s in os.listdir(os.path.join(exp, "checkpoints", "latest"))
+                            if s.isdigit())
+            cli_stdout(["train", "ppo", *flags, "--session.total_env_steps",
+                        str(5 * CARTPOLE_ITER)])
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        launches = {n: k.launches for n, k in kernels.items()}
+        want3 = {"gae": 0, "ppo_loss_fwd": 32 * 3, "ppo_loss_bwd": 32 * 3}
+        want5 = {"gae": 0, "ppo_loss_fwd": 32 * 5, "ppo_loss_bwd": 32 * 5}
+        resumed = [m for m in lines if m.startswith("resumed from checkpoint")]
+        latest_after = sorted(int(s) for s in os.listdir(
+            os.path.join(exp, "checkpoints", "latest")) if s.isdigit())
+        with open(os.path.join(exp, "config.json")) as f:
+            saved_cfg = json.load(f)
+        overrides = _parse_overrides(flags[:-2] + ["--session.total_env_steps",
+                                                   str(5 * CARTPOLE_ITER)])
+        want_cfg = dict(zip(("learner", "env", "session"),
+                            (c.to_dict() for c in generate_configs("ppo", overrides))))
+        out.update(train_3_iterations_s=t1 - t0, resume_2_iterations_s=t2 - t1,
+                   launches_first_3_iterations=launches_3, launches_all_5_iterations=launches,
+                   checkpoints_after_3=latest, checkpoints_after_resume=latest_after,
+                   resumed_line=resumed, evals=evals_logged(lines),
+                   config_json_equals_generate_configs=saved_cfg == want_cfg)
+        if launches_3 != want3 or launches != want5:
+            fail(f"the CLI cartpole path launched {launches_3} in 3 iterations and {launches} "
+                 f"in 5: expected {want3} and {want5}")
+        if latest != [CARTPOLE_ITER, 2 * CARTPOLE_ITER, 3 * CARTPOLE_ITER]:
+            fail(f"checkpoints after 3 iterations at {latest}")
+        if resumed != [f"resumed from checkpoint @ {3 * CARTPOLE_ITER} env steps (iter 3)"]:
+            fail(f"the second run did not resume at iteration 3: {resumed}")
+        if latest_after[-1] != 5 * CARTPOLE_ITER:
+            fail(f"the latest checkpoint after resuming is {latest_after}")
+        if saved_cfg != want_cfg:
+            fail("config.json differs from generate_configs' output")
+
+        # the 98,304-step checkpoint into a fresh trainer, against the bytes saved
+        cfg = Config(saved_cfg)
+        fresh = _build_trainer(cfg.learner, cfg.env, cfg.session, str(dev))
+        ck = Checkpointer(os.path.join(exp, "checkpoints"))
+        fresh.load_full_state(ck.restore(fresh.full_state, step=3 * CARTPOLE_ITER))
+        on_disk = torch.load(os.path.join(exp, "checkpoints", "latest", str(3 * CARTPOLE_ITER),
+                                          STATE_FILE), weights_only=True, map_location="cpu")
+        bad = unequal_leaves(fresh.full_state, on_disk)
+        out["reload_tensors"] = sum(isinstance(x, torch.Tensor)
+                                    for _, x in state_leaves(on_disk))
+        out["reload_unequal"] = bad
+        if bad or fresh.global_iter != 3:
+            fail(f"the reloaded trainer differs from the checkpoint at {bad}")
+        del fresh
+
+        t0 = time.perf_counter()
+        ev = json.loads(cli_stdout(["eval", "--experiment", exp, "--best", "--episodes", "16",
+                                    "--device", str(dev)]).strip().splitlines()[-1])
+        out.update(eval_best=ev, eval_best_s=time.perf_counter() - t0,
+                   best=ck.best_info)
+        if not np.isfinite(ev["return_mean"]) or ev["episodes"] != 16:
+            fail(f"eval --best printed {ev}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the DDPG cell's full state, ring and all, into a fresh trainer
+    root = tempfile.mkdtemp(prefix="chip_smoke_ddpg_")
+    try:
+        t = ddpg_t
+        ck = Checkpointer(root)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(t.global_iter * t.steps_per_iteration, t.full_state)
+        t1 = time.perf_counter()
+        path = os.path.join(root, "latest", str(ck.latest_step()), STATE_FILE)
+        fresh = DDPGTrainer("cheetah-run", t.cfg, num_envs=t.num_envs, seed=1, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fresh.load_full_state(ck.restore(fresh.full_state))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        bad = unequal_leaves(fresh.full_state, t.full_state)
+        t.run(1, log_every=1)
+        fresh.run(1, log_every=1)
+        bad_next = unequal_leaves(fresh.full_state, t.full_state)
+        out.update(ddpg_checkpoint_bytes=os.path.getsize(path), ddpg_save_s=t1 - t0,
+                   ddpg_restore_s=t3 - t2, ddpg_ring_transitions=t.replay.capacity_t * t.num_envs,
+                   ddpg_unequal_after_restore=bad, ddpg_unequal_after_one_more_iteration=bad_next)
+        if bad or bad_next:
+            fail(f"the restored DDPG trainer differs: {bad} after restoring, {bad_next} after "
+                 "one more iteration")
+        del fresh
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # one checked iteration (debug_checks) beside an unchecked one
+    learner, env_cfg, _ = generate_configs("ppo", _parse_overrides(CARTPOLE_FLAGS))
+    t = PPOTrainer("cartpole-balance", to_algo_config(learner), num_envs=int(env_cfg.num_envs),
+                   hidden=tuple(learner.hidden), seed=0, device=dev, debug_checks=True)
+    t.run(1, log_every=1)  # warm-up, checked
+    times = {}
+    for label, on in (("unchecked", False), ("checked", True)):
+        t.debug_checks = on
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.run(1, log_every=1)
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+    out.update(unchecked_iteration_s=times["unchecked"],
+               debug_checks_iteration_s=times["checked"])
+    del t
+
+    env = {"BENCH_WARMUP_ITERS": "1", "BENCH_ITERS": "2"}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        out["bench"] = json.loads(cli_stdout(["bench", "--device", str(dev)]
+                                             ).strip().splitlines()[-1])
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(out))
+    return launches
+
+
+def learn(out_dir: str | None, flags: list[str]) -> None:
+    """Trains cartpole-balance PPO through the port's CLI to the recipe's
+    budget (4,000,000 env steps, evals every 15 iterations) with the fused
+    loss, then evaluates the last checkpoint over 32 episodes,
+    deterministically and sampled, as results/cartpole_balance_ppo_r5.txt
+    did. Fails below 900. `flags` go to the train command after the
+    recipe's (a diagnosis run: another seed, the unfused loss, a shorter
+    log interval)."""
+    from surreal_tpu_torch.device import resolve
+
+    resolve("cuda")
+    smi = phase_card()
+    phase_build()
+    root = out_dir or tempfile.mkdtemp(prefix="chip_smoke_learn_")
+    exp = os.path.join(root, "cartpole_balance_learn")
+    with LogLines() as lines:
+        t0 = time.perf_counter()
+        cli_stdout(["train", "ppo", *CARTPOLE_FLAGS, "--session.results_dir", root,
+                    "--session.experiment_name", "cartpole_balance_learn",
+                    "--session.restore", "false", "--device", "cuda", *flags])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with open(os.path.join(exp, "config.json")) as f:
+        cfg = json.load(f)
+    final = {}
+    for label, extra in (("deterministic", []), ("stochastic", ["--stochastic"])):
+        final[label] = json.loads(cli_stdout(
+            ["eval", "--experiment", exp, "--episodes", "32", "--device", "cuda", *extra]
+        ).strip().splitlines()[-1])
+    iters = cfg["session"]["total_env_steps"] // CARTPOLE_ITER
+    train_curve = [line for line in lines if line.startswith("it ")]
+    print(json.dumps({
+        "phase": "learn", "env": "cartpole-balance", "flags": flags,
+        "seed": cfg["session"]["seed"], "fused_loss": cfg["learner"]["fused_loss"],
+        "iterations": iters,
+        "env_steps": iters * CARTPOLE_ITER, "wall_s": wall,
+        "env_steps_per_s_with_evals": iters * CARTPOLE_ITER / wall,
+        "eval_curve": evals_logged(lines), "train_log": train_curve,
+        "final_eval_32": final["deterministic"], "final_eval_32_stochastic": final["stochastic"],
+        "evidence_eval_32": EVIDENCE_EVAL, "results_dir": root}))
+    if not final["deterministic"]["return_mean"] >= 900:
+        fail(f"cartpole-balance scored {final['deterministic']['return_mean']} < 900 "
+             f"after its recipe's budget (evidence {EVIDENCE_EVAL})")
+    print(f"card: {smi}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
 
 
 def loss_timing(root: str) -> None:
@@ -1421,8 +1766,14 @@ def main():
     if sys.argv[1:2] == ["--gae-sweep"]:
         gae_sweep()
         return
+    if sys.argv[1:2] == ["--learn"]:
+        rest = sys.argv[2:]
+        out_dir = rest.pop(0) if rest and not rest[0].startswith("--") else None
+        learn(out_dir, rest)
+        return
     from surreal_tpu_torch.device import resolve
 
+    t_start = time.perf_counter()
     dev = resolve("cuda")
     smi = phase_card()
     phase_build()
@@ -1435,6 +1786,7 @@ def main():
     phase_serving(dev, trainer)
     phase_envs(dev)
     finger_trainer, finger_launches, finger_times = phase_finger(dev)
+    cli_launches = phase_cli(dev, ddpg_trainer)
     breakdown(trainer)
     new_cells_profile(ddpg_trainer, ddpg_times, lstm_trainer, lstm_times)
     finger_profile(finger_trainer, finger_times)
@@ -1442,11 +1794,13 @@ def main():
         # every number is a reading: each path was driven with the counts at
         # 0 just before it and read just after its last update
         by_path = {"ppo": launches[name], "ppo_lstm": lstm_launches[name],
-                   "ddpg": ddpg_launches[name], "ppo_finger": finger_launches[name]}
+                   "ddpg": ddpg_launches[name], "ppo_finger": finger_launches[name],
+                   "cli_ppo_cartpole": cli_launches[name]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         for extra in ("tol", "bytes", "call_ms", "plain_call_ms"):
             k.pop(extra)
+    print(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -34,6 +34,7 @@ from surreal_tpu_torch.parallel.param_sync import (
     param_sync_init,
     param_sync_refresh,
 )
+from surreal_tpu_torch.utils import guards
 
 Tensor = torch.Tensor
 
@@ -305,10 +306,12 @@ def apply_gradients(cfg: PPOConfig, state: PPOTrainState, loss: Tensor, lr: Tens
     names, params = zip(*state.net.named_parameters())
     grads = dict(zip(names, torch.autograd.grad(loss, params)))
     with torch.no_grad():
+        g_norm = global_norm(grads.values())
+        guards.assert_finite(g_norm, "ppo.update.grad_norm")
         updates = scale_by_adam(clip_by_global_norm(grads, cfg.max_grad_norm), state.opt_state)
         for n, p in zip(names, params):
             p.add_(lr * (-1.0 * updates[n]))
-        return global_norm(grads.values())
+        return g_norm
 
 
 def finish_update(cfg: PPOConfig, state: PPOTrainState, raw_obs: Tensor, metrics: dict) -> None:

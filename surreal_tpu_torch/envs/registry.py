@@ -57,10 +57,21 @@ def _builtin() -> dict[str, Callable[..., Environment]]:
 _REGISTRY: dict[str, Callable[..., Environment]] = {}
 
 
-def make_env(name: str, **kwargs) -> Environment:
-    """Builds the named env; `device` (default "cuda") and `dtype` go to it."""
+def _ensure_builtin() -> None:
     if not _REGISTRY:
         _REGISTRY.update(_builtin())
+
+
+def register(name: str, factory: Callable[..., Environment]) -> None:
+    """Adds (or replaces) a name; `factory(**kwargs)` builds the env, with
+    `device` and `dtype` among the kwargs that `make_env` passes on."""
+    _ensure_builtin()
+    _REGISTRY[name] = factory
+
+
+def make_env(name: str, **kwargs) -> Environment:
+    """Builds the named env; `device` (default "cuda") and `dtype` go to it."""
+    _ensure_builtin()
     if name.startswith("gym:"):
         raise NotImplementedError(
             "gym: host-loop adapters are not ported yet (ROADMAP.md, Queue A 16)")
@@ -71,6 +82,5 @@ def make_env(name: str, **kwargs) -> Environment:
 
 
 def available_envs() -> list[str]:
-    if not _REGISTRY:
-        _REGISTRY.update(_builtin())
+    _ensure_builtin()
     return sorted(_REGISTRY)

@@ -1,7 +1,9 @@
 """Fused GAE: the launcher of the CUDA kernel `csrc/gae.cu`.
 
 Replaces surreal_tpu/ops/pallas_gae.py::gae_pallas. `ops/returns.gae`
-dispatches here for CUDA tensors; its plain version is `returns.gae_plain`.
+dispatches here for CUDA tensors with `backend="pallas"`, as the
+reference's `gae` does to its Pallas kernel; its plain version is
+`returns.gae_plain`.
 """
 
 from __future__ import annotations

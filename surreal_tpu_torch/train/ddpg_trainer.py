@@ -7,12 +7,21 @@ from __future__ import annotations
 import torch
 
 from surreal_tpu_torch.algos import ddpg
+from surreal_tpu_torch.data.replay import ReplayState
 from surreal_tpu_torch.device import resolve as resolve_device
 from surreal_tpu_torch.envs import base as env_base
 from surreal_tpu_torch.envs import make_env
 from surreal_tpu_torch.models.ddpg_nets import DDPGActor, DDPGCritic
+from surreal_tpu_torch.models.z_filter import ZFilterState
 from surreal_tpu_torch.train.evaluator import evaluate_policy
-from surreal_tpu_torch.train.loop import Trainer
+from surreal_tpu_torch.train.loop import (
+    Trainer,
+    adam_state,
+    load_adam_state,
+    zfilter_state,
+)
+
+NETS = ("actor", "critic", "target_actor", "target_critic")
 
 
 class DDPGTrainer(Trainer):
@@ -21,7 +30,7 @@ class DDPGTrainer(Trainer):
     def __init__(self, env_name: str, cfg: ddpg.DDPGConfig | None = None, num_envs: int = 128,
                  seed: int = 0, actor_hidden=(300, 200), critic_hidden=(400, 300),
                  device: str | torch.device | None = None, pixel_obs: bool = False,
-                 env_kwargs: dict | None = None, mesh=None):
+                 env_kwargs: dict | None = None, debug_checks: bool = False, mesh=None):
         if pixel_obs or mesh is not None:
             raise NotImplementedError(
                 "pixel_obs and mesh are not ported yet (ROADMAP.md, Queue A)")
@@ -47,10 +56,43 @@ class DDPGTrainer(Trainer):
         self.ou_state = torch.zeros(num_envs, act_dim, device=self.device)
         self.ep_ret = torch.zeros(num_envs, dtype=torch.float32, device=self.device)
         self.global_iter = 0
+        self.debug_checks = debug_checks
 
     @property
     def steps_per_iteration(self) -> int:
         return self.cfg.rollout_steps * self.num_envs
+
+    # ---- full-state checkpointing: the four networks and both Adam states,
+    # the replay ring's contents and count, the exploration noise, the env
+    # batch, the generator and the counters ----
+    @property
+    def full_state(self) -> dict:
+        s = self.state
+        fs = {**{n: getattr(s, n).state_dict() for n in NETS},
+              "actor_opt": adam_state(s.actor_opt), "critic_opt": adam_state(s.critic_opt),
+              "zfilter": zfilter_state(s.zfilter), "update_step": s.update_step,
+              "replay": {"data": dict(self.replay.data), "total": self.replay.total},
+              "ou_state": self.ou_state, **self._run_state()}
+        if s.psync is not None:
+            fs["psync"] = {"net": s.psync.actor_params.state_dict(), "version": s.psync.version}
+        return fs
+
+    def load_full_state(self, fs: dict) -> None:
+        s = self.state
+        for n in NETS:
+            getattr(s, n).load_state_dict(fs[n])
+        load_adam_state(s.actor_opt, fs["actor_opt"])
+        load_adam_state(s.critic_opt, fs["critic_opt"])
+        s.zfilter = ZFilterState(**fs["zfilter"])
+        s.update_step = int(fs["update_step"])
+        if s.psync is not None:
+            s.psync.actor_params.load_state_dict(fs["psync"]["net"])
+            s.psync.version = int(fs["psync"]["version"])
+        for k, buf in self.replay.data.items():
+            buf.copy_(fs["replay"]["data"][k])
+        self.replay = ReplayState(data=self.replay.data, total=int(fs["replay"]["total"]))
+        self.ou_state = fs["ou_state"]
+        self._load_run_state(fs)
 
     def _iterate(self) -> dict:
         (self.state, self.replay, self.env_state, self.obs, self.ou_state, self.ep_ret,

@@ -1,5 +1,6 @@
 """The loop the trainers share: iterate, sum the episode returns on the
-device, and read the metrics on the host once per log interval."""
+device, and read the metrics on the host once per log interval; and the
+parts of a trainer's full state that every trainer has."""
 
 from __future__ import annotations
 
@@ -10,17 +11,55 @@ from typing import Callable
 import numpy as np
 import torch
 
+from surreal_tpu_torch.algos.ppo import AdamState
+from surreal_tpu_torch.envs.base import EnvState
+from surreal_tpu_torch.models.z_filter import ZFilterState
+from surreal_tpu_torch.utils import guards
+
 log = logging.getLogger("surreal_tpu_torch.train")
 
 
 class Trainer:
-    """A trainer sets `device`, `global_iter` and `steps_per_iteration` and
-    implements `_iterate`."""
+    """A trainer sets `device`, `generator`, `env_state`, `obs`, `ep_ret`,
+    `global_iter`, `steps_per_iteration` and `debug_checks`, and implements
+    `_iterate` and `full_state` / `load_full_state`."""
 
     default_log_every = 10
     device: torch.device
+    generator: torch.Generator
+    env_state: EnvState
+    obs: torch.Tensor
+    ep_ret: torch.Tensor
     global_iter: int  # lifetime iteration count
     steps_per_iteration: int
+    # Sanitizer mode: every iteration runs with the guards' hooks on, and
+    # every floating tensor of the full state is checked after it.
+    debug_checks: bool = False
+
+    @property
+    def full_state(self) -> dict:
+        """Everything a resumed run needs to continue as if never stopped:
+        a nested dict of tensors and Python scalars (`train.checkpoint`)."""
+        raise NotImplementedError
+
+    def load_full_state(self, fs: dict) -> None:
+        """Restores `full_state` into this trainer's existing modules and
+        tensors (it rebuilds nothing)."""
+        raise NotImplementedError
+
+    def _run_state(self) -> dict:
+        """The full state's share of the env batch, the RNG and the counter."""
+        s = self.env_state
+        return {"env_state": {"q": s.q, "qd": s.qd, "t": s.t}, "obs": self.obs,
+                "ep_ret": self.ep_ret, "generator": self.generator.get_state(),
+                "global_iter": self.global_iter}
+
+    def _load_run_state(self, fs: dict) -> None:
+        self.env_state = EnvState(**fs["env_state"])
+        self.obs = fs["obs"]
+        self.ep_ret = fs["ep_ret"]
+        self.generator.set_state(fs["generator"].cpu())  # a generator's state lives on the host
+        self.global_iter = int(fs["global_iter"])
 
     def _iterate(self) -> dict:
         """One train step on the trainer's own state; returns its metrics
@@ -42,9 +81,17 @@ class Trainer:
         logs = []
         ep_ret_acc = torch.zeros((), device=self.device)
         ep_cnt_acc = torch.zeros((), device=self.device)
+        if self.debug_checks:
+            with guards.checking():
+                guards.assert_finite_tree(self.full_state, "full_state")
         t0 = time.perf_counter()
         for it in range(1, iterations + 1):
-            metrics = self._iterate()
+            if self.debug_checks:
+                with guards.checking():
+                    metrics = self._iterate()
+                    guards.assert_finite_tree(self.full_state, "full_state")
+            else:
+                metrics = self._iterate()
             ep_ret_acc = ep_ret_acc + metrics["episode_return_sum"]
             ep_cnt_acc = ep_cnt_acc + metrics["episodes_done"]
             self.global_iter += 1
@@ -73,3 +120,16 @@ class Trainer:
                          f"{m.get('episode_return', float('nan')):.1f}", self._describe(m))
                 t0 = time.perf_counter()
         return logs
+
+
+def adam_state(opt: AdamState) -> dict:
+    return {"count": opt.count, "mu": dict(opt.mu), "nu": dict(opt.nu)}
+
+
+def load_adam_state(opt: AdamState, fs: dict) -> None:
+    opt.count = int(fs["count"])
+    opt.mu, opt.nu = dict(fs["mu"]), dict(fs["nu"])
+
+
+def zfilter_state(zf: ZFilterState) -> dict:
+    return {"count": zf.count, "mean": zf.mean, "m2": zf.m2}

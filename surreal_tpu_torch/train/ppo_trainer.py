@@ -12,15 +12,22 @@ from surreal_tpu_torch.envs import base as env_base
 from surreal_tpu_torch.envs import make_env
 from surreal_tpu_torch.models.actor_critic import PPOActorCritic
 from surreal_tpu_torch.models.distributions import DiagGauss
+from surreal_tpu_torch.models.z_filter import ZFilterState
 from surreal_tpu_torch.train.evaluator import evaluate_policy
-from surreal_tpu_torch.train.loop import Trainer
+from surreal_tpu_torch.train.loop import (
+    Trainer,
+    adam_state,
+    load_adam_state,
+    zfilter_state,
+)
 
 
 class PPOTrainer(Trainer):
     def __init__(self, env_name: str, cfg: ppo.PPOConfig | None = None, num_envs: int = 256,
                  seed: int = 0, hidden=(64, 64), device: str | torch.device | None = None,
                  pixel_obs: bool = False, use_lstm: bool = False, lstm_size: int = 128,
-                 env_kwargs: dict | None = None, mesh=None, overlap: bool = False):
+                 env_kwargs: dict | None = None, debug_checks: bool = False, mesh=None,
+                 overlap: bool = False):
         if pixel_obs or mesh is not None or overlap:
             raise NotImplementedError(
                 "pixel_obs, mesh and overlap are not ported yet (ROADMAP.md, Queue A)")
@@ -44,10 +51,40 @@ class PPOTrainer(Trainer):
         self.state = ppo.init_state(self.cfg, net, obs_dim)
         self.ep_ret = torch.zeros(num_envs, dtype=torch.float32, device=self.device)
         self.global_iter = 0
+        self.debug_checks = debug_checks
 
     @property
     def steps_per_iteration(self) -> int:
         return self.cfg.horizon * self.num_envs
+
+    # ---- full-state checkpointing: the network, Adam, the Z-filter, the
+    # KL/LR adaptation, the actors' snapshot, the env batch, the LSTM carry,
+    # the generator and the counters all survive ----
+    @property
+    def full_state(self) -> dict:
+        s = self.state
+        fs = {"net": s.net.state_dict(), "opt": adam_state(s.opt_state),
+              "zfilter": zfilter_state(s.zfilter), "kl_beta": s.kl_beta,
+              "lr_scale": s.lr_scale, "update_step": s.update_step, **self._run_state()}
+        if s.psync is not None:
+            fs["psync"] = {"net": s.psync.actor_params.state_dict(), "version": s.psync.version}
+        if self.use_lstm:
+            fs["carry"] = list(self.carry)
+        return fs
+
+    def load_full_state(self, fs: dict) -> None:
+        s = self.state
+        s.net.load_state_dict(fs["net"])
+        load_adam_state(s.opt_state, fs["opt"])
+        s.zfilter = ZFilterState(**fs["zfilter"])
+        s.kl_beta, s.lr_scale = fs["kl_beta"], fs["lr_scale"]
+        s.update_step = int(fs["update_step"])
+        if s.psync is not None:
+            s.psync.actor_params.load_state_dict(fs["psync"]["net"])
+            s.psync.version = int(fs["psync"]["version"])
+        if self.use_lstm:
+            self.carry = tuple(fs["carry"])
+        self._load_run_state(fs)
 
     def _iterate(self) -> dict:
         if self.use_lstm:

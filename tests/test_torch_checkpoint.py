@@ -1,0 +1,143 @@
+"""The port's Checkpointer (latest and best retention, meta.json, restore
+onto the target's device and structure) and the trainers' full state: a
+run saved, loaded into a fresh trainer built with another seed and
+continued equals the uninterrupted run bit for bit, for PPO with the fused
+loss, LSTM-PPO with a stale actor snapshot and DDPG past its replay
+warm-up."""
+
+import json
+import os
+
+import pytest
+import torch
+
+from surreal_tpu_torch.algos.ddpg import DDPGConfig
+from surreal_tpu_torch.algos.ppo import PPOConfig
+from surreal_tpu_torch.train import DDPGTrainer, PPOTrainer
+from surreal_tpu_torch.train.checkpoint import Checkpointer
+
+
+def _state(offset):
+    return {"w": torch.arange(4.0) + offset, "step": offset, "nested": {"k": [torch.ones(2)]}}
+
+
+def test_checkpoint_latest_and_best(tmp_path):
+    ck = Checkpointer(str(tmp_path / "ck"), keep_latest=2)
+    ck.save(1, _state(0), score=10.0)
+    ck.save(2, _state(1), score=5.0)  # worse: not best
+    ck.save(3, _state(2), score=20.0)  # new best
+    ck.save(4, _state(3))  # no score: best unchanged
+    ck.wait()
+    assert ck.latest_step() == 4
+    restored = ck.restore(_state(0))
+    assert torch.equal(restored["w"], torch.arange(4.0) + 3) and restored["step"] == 3
+    best = ck.restore(_state(0), best=True)
+    assert torch.equal(best["w"], torch.arange(4.0) + 2)
+    assert torch.equal(ck.restore(_state(0), step=3)["w"], torch.arange(4.0) + 2)
+    assert ck.best_info == {"best_score": 20.0, "best_step": 3}
+    assert sorted(os.listdir(tmp_path / "ck" / "latest")) == ["3", "4"]  # keep_latest=2
+    assert os.listdir(tmp_path / "ck" / "best") == ["3"]
+    with open(tmp_path / "ck" / "meta.json") as f:
+        assert json.load(f) == {"best_score": 20.0, "best_step": 3}
+    ck.close()
+    # a new Checkpointer on the same root reads the best back, and moves it
+    # only on a better score
+    ck2 = Checkpointer(str(tmp_path / "ck"), keep_latest=2)
+    assert ck2.best_info == {"best_score": 20.0, "best_step": 3}
+    ck2.save(5, _state(4), score=19.0)
+    assert ck2.best_info["best_step"] == 3
+    ck2.save(6, _state(5), score=21.0)
+    assert ck2.best_info == {"best_score": 21.0, "best_step": 6}
+    assert os.listdir(tmp_path / "ck" / "best") == ["6"]
+    assert not [n for n in os.listdir(tmp_path / "ck" / "latest") if not n.isdigit()]
+
+
+def test_checkpoint_restore_missing(tmp_path):
+    ck = Checkpointer(str(tmp_path / "empty"))
+    with pytest.raises(FileNotFoundError):
+        ck.restore({"w": torch.zeros(2)})
+    with pytest.raises(FileNotFoundError):
+        ck.restore({"w": torch.zeros(2)}, best=True)
+    ck.save(1, {"w": torch.zeros(2)})
+    with pytest.raises(FileNotFoundError):
+        ck.restore({"w": torch.zeros(2)}, step=2)
+
+
+@pytest.mark.parametrize("target", [
+    {"w": torch.zeros(3)}, {"w": torch.zeros(2, dtype=torch.int64)}, {"v": torch.zeros(2)},
+    {"w": 0.0}], ids=["shape", "dtype", "keys", "type"])
+def test_checkpoint_restore_rejects_another_structure(tmp_path, target):
+    ck = Checkpointer(str(tmp_path / "ck"))
+    ck.save(1, {"w": torch.zeros(2)})
+    with pytest.raises(ValueError, match="checkpoint"):
+        ck.restore(target)
+
+
+# --- resume determinism ---
+
+def _ppo(seed, **kw):
+    cfg = PPOConfig(horizon=32, epochs=2, num_minibatches=1, fused_loss=True,
+                    entropy_coef=0.01, publish_every=kw.pop("publish_every", 1))
+    return PPOTrainer("cartpole-balance", cfg, num_envs=8, seed=seed, hidden=(16, 16),
+                      device="cpu", **kw)
+
+
+def _ddpg(seed):
+    cfg = DDPGConfig(rollout_steps=4, updates_per_iteration=2, batch_size=16, min_replay=32,
+                     replay_capacity=512)
+    return DDPGTrainer("cartpole-balance", cfg, num_envs=8, seed=seed, actor_hidden=(16, 16),
+                       critic_hidden=(16, 16), device="cpu")
+
+
+MAKERS = {
+    "ppo_fused": lambda seed: _ppo(seed),
+    "lstm_ppo_publish_every_2": lambda seed: _ppo(seed, use_lstm=True, lstm_size=16,
+                                                  publish_every=2),
+    "ddpg": _ddpg,
+}
+
+
+def _leaves(tree, path="fs"):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def _assert_equal_states(a, b):
+    la, lb = list(_leaves(a)), list(_leaves(b))
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (path, x), (_, y) in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            assert x.dtype == y.dtype and torch.equal(x, y), path
+        else:
+            assert x == y, path
+
+
+@pytest.mark.parametrize("kind", list(MAKERS))
+def test_resume_is_bitwise_the_uninterrupted_run(tmp_path, kind):
+    straight = MAKERS[kind](0)
+    straight.run(4, log_every=4)
+
+    first = MAKERS[kind](0)
+    first.run(2, log_every=2)
+    ck = Checkpointer(str(tmp_path / "ck"))
+    ck.save(2, first.full_state)
+    resumed = MAKERS[kind](123)  # another seed: other networks, env batch and generator
+    modules = [m for m in vars(resumed.state).values() if isinstance(m, torch.nn.Module)]
+    resumed.load_full_state(ck.restore(resumed.full_state))
+    assert resumed.global_iter == 2
+    assert all(a is b for a, b in zip(
+        modules, [m for m in vars(resumed.state).values() if isinstance(m, torch.nn.Module)]))
+    resumed.run(2, log_every=2)
+
+    assert resumed.global_iter == 4
+    _assert_equal_states(resumed.full_state, straight.full_state)
+    if kind == "ddpg":
+        assert straight.state.update_step == 8 and straight.replay.total == 16
+    if kind.startswith("lstm"):
+        assert straight.state.psync.version == 4

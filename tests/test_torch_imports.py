@@ -1,7 +1,7 @@
 """The port's import rule: nothing under surreal_tpu_torch/, nor
-chip_smoke.py, imports jax, jaxlib, flax, optax or the surreal_tpu
-package, and every module of the port imports on a machine without a
-card."""
+chip_smoke.py, imports jax, jaxlib, flax, optax, orbax, the surreal_tpu
+package, tensorboard or tensorflow (the card's machine has neither), and
+every module of the port imports on a machine without a card."""
 
 import ast
 import importlib
@@ -10,7 +10,8 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "surreal_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "surreal_tpu", "tensorboard",
+             "tensorflow"}
 FILES = sorted((ROOT / "surreal_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

@@ -84,7 +84,7 @@ def test_gae_kernel_matches_plain(cuda_device, B):
     disc = (torch.rand(T, B, generator=g) > 0.02).float().to(cuda_device)
     done = (torch.rand(T, B, generator=g) < 0.05).to(cuda_device)
     before = gae_kernel.GAE.launches
-    k = returns.gae(r, v, nv, disc, done, 0.99, 0.95)
+    k = returns.gae(r, v, nv, disc, done, 0.99, 0.95, backend="pallas")
     assert gae_kernel.GAE.launches == before + 1
     p = returns.gae_plain(r, v, nv, disc, done, 0.99, 0.95)
     torch.cuda.synchronize()
@@ -106,7 +106,7 @@ def test_gae_kernel_matches_plain_at_shapes(cuda_device, T, B):
     """The recipes' shapes, ragged T and B (a short last chunk, a masked
     column edge), one step, and T = 2048 walked in 8 segments."""
     batch = _gae_batch(T, B, cuda_device)
-    k = returns.gae(*batch, 0.99, 0.95)
+    k = returns.gae(*batch, 0.99, 0.95, backend="pallas")
     p = returns.gae_plain(*batch, 0.99, 0.95)
     torch.cuda.synchronize()
     for a, b in zip(k, p):
@@ -119,7 +119,7 @@ def test_gae_kernel_long_scans_across_segments(cuda_device):
     segment of T = 1000."""
     r, v, nv, disc, done = _gae_batch(1000, 64, cuda_device)
     disc, done = torch.ones_like(disc), torch.zeros_like(done)
-    for a, b in zip(returns.gae(r, v, nv, disc, done, 0.99, 0.95),
+    for a, b in zip(returns.gae(r, v, nv, disc, done, 0.99, 0.95, backend="pallas"),
                     returns.gae_plain(r, v, nv, disc, done, 0.99, 0.95)):
         assert (a - b).abs().max().item() <= 1e-4
 
@@ -130,7 +130,8 @@ def test_gae_kernel_takes_misaligned_views(cuda_device):
     batch = [_at_offset(x) for x in _gae_batch(128, 255, cuda_device)]
     assert all(x.is_contiguous() for x in batch)
     assert all(x.data_ptr() % 16 for x in batch[:4])
-    for a, b in zip(returns.gae(*batch, 0.99, 0.95), returns.gae_plain(*batch, 0.99, 0.95)):
+    for a, b in zip(returns.gae(*batch, 0.99, 0.95, backend="pallas"),
+                    returns.gae_plain(*batch, 0.99, 0.95)):
         assert (a - b).abs().max().item() <= 1e-4
 
 
@@ -138,7 +139,7 @@ def test_gae_kernel_takes_misaligned_views(cuda_device):
 def test_gae_kernel_is_deterministic(cuda_device, T, B):
     """A fixed order of composition and no atomics: two calls are bitwise equal."""
     batch = _gae_batch(T, B, cuda_device)
-    first, second = returns.gae(*batch, 0.99, 0.95), returns.gae(*batch, 0.99, 0.95)
+    first, second = (returns.gae(*batch, 0.99, 0.95, backend="pallas") for _ in range(2))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
@@ -150,7 +151,7 @@ def test_gae_kernel_propagates_nan_like_plain(cuda_device, bad):
     r, v, nv, disc, done = _gae_batch(128, 256, cuda_device, p_done=0.2)
     r[77, 5] = bad
     assert done[:77, 5].any()
-    k = returns.gae(r, v, nv, disc, done, 0.99, 0.95)
+    k = returns.gae(r, v, nv, disc, done, 0.99, 0.95, backend="pallas")
     p = returns.gae_plain(r, v, nv, disc, done, 0.99, 0.95)
     for a, b in zip(k, p):
         assert torch.equal(torch.isnan(a), torch.isnan(b))
@@ -171,7 +172,7 @@ def test_gae_kernel_done_row_cuts_the_scan(cuda_device, row):
     v = torch.zeros(T, B, device=cuda_device)
     done = torch.zeros(T, B, dtype=torch.bool, device=cuda_device)
     done[row] = True
-    adv, vt = returns.gae(r, v, v, torch.ones_like(r), done, 0.99, 0.95)
+    adv, vt = returns.gae(r, v, v, torch.ones_like(r), done, 0.99, 0.95, backend="pallas")
     assert torch.equal(adv[row], torch.ones(B, device=cuda_device))
     if row:
         assert torch.allclose(adv[row - 1], 1 + 0.99 * 0.95 * adv[row])
@@ -185,11 +186,11 @@ def test_gae_is_one_device_kernel(cuda_device):
     from torch.profiler import ProfilerActivity, profile
 
     batch = _gae_batch(128, 256, cuda_device)
-    returns.gae(*batch, 0.99, 0.95)  # warm-up: build and load
+    returns.gae(*batch, 0.99, 0.95, backend="pallas")  # warm-up: build and load
     torch.cuda.synchronize()
     before = gae_kernel.GAE.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        returns.gae(*batch, 0.99, 0.95)
+        returns.gae(*batch, 0.99, 0.95, backend="pallas")
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert len(names) == 1 and "gae_kernel" in names[0], names
@@ -212,18 +213,24 @@ def test_gae_kernel_takes_bool_dones_only(cuda_device):
         gae_kernel.gae_cuda(x, x, x, x, x, 0.99, 0.95)
 
 
+ACTIONS = [1, 2, 6]  # cartpole's one actuator, finger-spin's two, cheetah's six
+
+
+@pytest.mark.parametrize("A", ACTIONS)
 @pytest.mark.parametrize("shared_log_std_old", [False, True])
-def test_loss_kernels_match_plain(cuda_device, shared_log_std_old):
-    batch = _loss_batch(4096, 6, cuda_device, shared_log_std_old)
+def test_loss_kernels_match_plain(cuda_device, shared_log_std_old, A):
+    batch = _loss_batch(4096, A, cuda_device, shared_log_std_old)
     _check_loss_kernels(batch, torch.ones((), device=cuda_device))
 
 
+@pytest.mark.parametrize("A", ACTIONS)
 @pytest.mark.parametrize("log_std_rows", [False, True], ids=["log_std_A", "log_std_NA"])
 @pytest.mark.parametrize("N", [256, 4096, 4100, 16384])
-def test_loss_kernels_match_plain_at_sizes(cuda_device, N, log_std_rows):
+def test_loss_kernels_match_plain_at_sizes(cuda_device, N, log_std_rows, A):
     """A ragged tail (4100) and a row loop (4100, 16384 > the cluster's 4096
-    threads), both log_std forms, and a cotangent g_loss other than 1."""
-    batch = _loss_batch(N, 6, cuda_device, False, log_std_rows)
+    threads), both log_std forms, and a cotangent g_loss other than 1, at
+    each path's number of action dims."""
+    batch = _loss_batch(N, A, cuda_device, False, log_std_rows)
     _check_loss_kernels(batch, torch.tensor(2.5, device=cuda_device))
 
 
@@ -315,8 +322,10 @@ def test_kernel_rejects_mixed_devices(cuda_device):
 
 
 def test_ppo_lstm_update_launches_gae_kernel_once(cuda_device):
-    """The recurrent path's GAE goes through the kernel on the card: one
-    launch per update, whatever the epochs and minibatches."""
+    """The recurrent path's GAE takes the reference's default on the card,
+    the torch scan (`backend="xla"`), as the reference's ppo_lstm does: the
+    kernel is launched by `backend="pallas"` only, so an update on the card
+    launches it no time, whatever the epochs and minibatches."""
     from surreal_tpu_torch.algos import ppo, ppo_lstm
     from surreal_tpu_torch.models.actor_critic import PPOActorCritic
 
@@ -335,7 +344,7 @@ def test_ppo_lstm_update_launches_gae_kernel_once(cuda_device):
     before = gae_kernel.GAE.launches
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     state, metrics = ppo_lstm.update(cfg, state, traj, gen)
-    assert gae_kernel.GAE.launches == before + 1
+    assert gae_kernel.GAE.launches == before
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert state.opt_state.count == 4
 

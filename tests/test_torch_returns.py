@@ -182,3 +182,54 @@ def test_nstep_returns_match_reference(n):
     first_done = np.where(dones.any(0), dones.argmax(0), n)
     want = sum(0.99 ** k * rewards[k] * (k <= first_done) for k in range(n))
     np.testing.assert_allclose(want, G_t.numpy(), rtol=0, atol=1e-5)
+
+
+# --- the reference's `associative` and `backend` arguments ---
+
+TOL_FORM = 1e-6  # each torch form does the matching reference path's float32 operations in order
+
+
+def _truncated_batch(T, B=16):
+    """(T, B) N(0, 1) rewards and values; 5% true terminations (discount 0)
+    and 5% truncations (time limits: done with discount 1)."""
+    rs = np.random.RandomState(17 + T)
+    f = lambda: rs.randn(T, B).astype(np.float32)  # noqa: E731
+    term = rs.rand(T, B) < 0.05
+    trunc = rs.rand(T, B) < 0.05
+    disc = (~term).astype(np.float32)
+    return f(), f(), f(), disc, term | trunc
+
+
+@pytest.mark.parametrize("associative", [True, False])
+@pytest.mark.parametrize("T", [128, 5, 1])
+def test_gae_forms_match_the_reference_form(T, associative):
+    """associative=True against the reference's associative_scan, False
+    against its lax.scan, at T = 128, 5 (not a power of two) and 1."""
+    b = _truncated_batch(T)
+    ref = jret.gae(*b, GAMMA, LAM, associative=associative)
+    port = returns.gae(*(torch.tensor(x) for x in b), GAMMA, LAM, associative=associative)
+    for r, p in zip(ref, port):
+        np.testing.assert_allclose(np.asarray(r), p.numpy(), rtol=0, atol=TOL_FORM)
+
+
+def test_gae_defaults_are_the_reference_defaults():
+    import inspect
+
+    for fn in (jret.gae, returns.gae):
+        params = inspect.signature(fn).parameters
+        assert (params["associative"].default, params["backend"].default) == (True, "xla")
+
+
+def test_gae_pallas_backend_on_the_cpu_is_the_plain_version():
+    t = [torch.tensor(x) for x in _truncated_batch(128)]
+    before = gae_kernel.GAE.launches
+    for a, p in zip(returns.gae(*t, GAMMA, LAM, backend="pallas"),
+                    returns.gae_plain(*t, GAMMA, LAM)):
+        assert torch.equal(a, p)
+    assert gae_kernel.GAE.launches == before
+
+
+def test_gae_unknown_backend_raises():
+    t = [torch.tensor(x) for x in _truncated_batch(5)]
+    with pytest.raises(ValueError, match="backend"):
+        returns.gae(*t, GAMMA, LAM, backend="triton")
