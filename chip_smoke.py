@@ -15,8 +15,9 @@ Phases, each of which exits non-zero on failure:
      version on the card, and times both with CUDA events, and again at the
      finger-spin path's shapes (GAE at (T, B) = (128, 128), the loss at
      N = 4096 rows with A = 2) and, for the loss, at the CLI cartpole
-     path's (A = 1); checks and times GAE at the recipes' other two (T, B)
-     too; times the fused loss's forward and backward as autograd runs them;
+     path's (A = 1) and the pixel PPO path's (N = 2048, A = 6); checks
+     and times GAE at the recipes' other two (T, B) too; times the fused
+     loss's forward and backward as autograd runs them;
   4. checks the slice on a small input: one PPO update on the card (loss
      kernels; GAE by the reference's default, the torch scan) against the
      same update on the CPU (plain versions), the GAE kernel (backend
@@ -76,7 +77,31 @@ Phases, each of which exits non-zero on failure:
      tensor equal, and equal again after one more iteration of both; one
      cartpole iteration with debug_checks beside an unchecked one; and
      `bench` with BENCH_WARMUP_ITERS=1 BENCH_ITERS=2;
- 13. the profiler checks of the PPO slice: times one more iteration split
+ 13. the rasteriser at 128 envs and 84 x 84 on cheetah (a floating root),
+     ball_in_cup, manipulator_bring_ball and cartpole (a stick figure):
+     the card's frames against the CPU's from the same states (at most 1
+     grey level on at most 1% of the channels) and ms per call; one JSON
+     line per task;
+ 14. PPO from pixels on cheetah-run at its recipe (128 envs, action repeat
+     4, 3 stacked grayscale 84 x 84 frames, the conv stem and (256, 256),
+     horizon 128, 4 epochs x 8 minibatches of 2,048, fused loss) for two
+     iterations, the second split into rollout (its render and policy
+     shares timed alone) and update; checks from the counters, set to 0
+     before it, that each iteration launched each loss kernel 32 times and
+     GAE never, then one update on identical inputs on the card and the
+     CPU;
+ 15. DDPG from pixels on ball_in_cup-catch at the evidence's configuration
+     (results/bic_pixel_ddpg_aug_r5.txt: 128 envs, action repeat 2, a ring
+     of 99,968 uint8 frame stacks, 2,116,122,624 bytes, min_replay 5,000,
+     shared_encoder, aug_shift 4) until two iterations have updated; checks
+     the ring, the counts, the stems equal after sync_encoder, no kernel
+     launch, and one block of 2 updates on identical inputs (shift offsets
+     injected) on the card and the CPU;
+ 16. the pixel CLI: `train ppo --env.env_name cheetah-run --env.pixel_obs
+     true --session.video true` at the recipe for two iterations (the loss
+     32 + 32 launches an iteration from the counters), the eval video read
+     back to its frames, and `eval --best`;
+ 17. the profiler checks of the PPO slice: times one more iteration split
      into rollout and update, profiles another for the device's idle share,
      and profiles one minibatch step of the update for its loss kernels (2:
      one forward, one backward), a forward and a backward of
@@ -84,16 +109,21 @@ Phases, each of which exits non-zero on failure:
      device kernel each). torch.profiler stays attached to the process once
      used and slows every later launch, so it comes last and nothing is
      timed after it;
- 14. profiles the DDPG cell (one rollout, one update block), the recurrent
+ 18. profiles the DDPG cell (one rollout, one update block), the recurrent
      PPO cell (a rollout of 16 steps, one epoch of 8 minibatch steps) and
      the finger-spin cell (a rollout of 4 steps, one epoch of 4 minibatch
      steps) for their device kernels and device busy time, held against the
-     unprofiled times of the same parts from phases 7, 8 and 11.
-Phases 6 to 9, 11, 12 and 14 print one JSON object each (three in phase
-14), phase 10 one per task. The whole run's time follows; the line before
-the card's is a JSON object with one entry per kernel (GAE, on no trainer
-path since the reference's default is the XLA scan, is still held by
-phases 3, 4 and 13); the last line is {"ok": true, "device": {...}}.
+     unprofiled times of the same parts from phases 7, 8 and 11;
+ 19. profiles one render call per task of phase 13 and the pixel PPO cell
+     (a rollout of 2 decision steps, one epoch of 8 minibatch steps): device
+     kernels per decision step, the render's share of the rollout's device
+     time, the idle shares.
+Phases 6 to 9, 11, 12, 14 to 16, 18 and 19 print one JSON object each
+(three in phase 18), phases 10 and 13 one per task. The whole run's time
+follows; the line before the card's is a JSON object with one entry per
+kernel (GAE, on no trainer path since the reference's default is the XLA
+scan, is still held by phases 3, 4 and 17); the last line is {"ok": true,
+"device": {...}}.
 
 With --loss-timing, only phase 1 and the autograd timing of phase 3 run,
 on the surreal_tpu_torch package under ROOT (default: this checkout), so
@@ -152,6 +182,7 @@ GAE_SHAPES = ((128, 256), (256, 128), (256, 256))
 FINGER_GAE = (128, 128)  # finger-spin's recipe: horizon 128, 128 envs
 FINGER_ACTIONS = 2
 CARTPOLE_ACTIONS = 1  # cartpole-balance, the CLI phase's path: one actuator
+PIXEL_ROWS = 2048  # the pixel PPO recipe's minibatch: 128 envs x horizon 128 / 8
 TOL_LOSS_FWD = 1e-5  # the loss and 5 means of O(1) terms; 4096-term sums in another order
 TOL_LOSS_BWD = 1e-6  # per-row gradients of size ~1e-4 (they carry 1/N), and their row sum
 # The env step on the card against the CPU: sinf/cosf in FK differ by a few
@@ -395,9 +426,9 @@ SLIM = ("name", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"
 
 def phase_kernels(dev):
     """Each kernel at the cheetah path's shapes (the kernels line's entry),
-    at the finger-spin path's and at the CLI cartpole path's: GAE at (T, B)
-    = (128, 256) and (128, 128), the loss at N = 4096 rows with A = 6, 2
-    and 1."""
+    at the finger-spin path's, at the CLI cartpole path's and, for the loss,
+    at the pixel PPO path's: GAE at (T, B) = (128, 256) and (128, 128), the
+    loss at N = 4096 rows with A = 6, 2 and 1, and at N = 2048 with A = 6."""
     from surreal_tpu_torch.ops import gae_kernel, ppo_loss_kernel as plk, returns
 
     rng = np.random.default_rng(0)
@@ -409,6 +440,8 @@ def phase_kernels(dev):
     finger.update(ppo_loss_fwd=f_fwd, ppo_loss_bwd=f_bwd)
     c_fwd, c_bwd, _ = loss_cases(plk, rng, 4096, CARTPOLE_ACTIONS, dev)
     cartpole = {"ppo_loss_fwd": c_fwd, "ppo_loss_bwd": c_bwd}
+    p_fwd, p_bwd, _ = loss_cases(plk, rng, PIXEL_ROWS, 6, dev)
+    pixel = {"ppo_loss_fwd": p_fwd, "ppo_loss_bwd": p_bwd}
     for name, k in out.items():
         print_kernel(k)
         print_kernel(finger[name])
@@ -416,6 +449,8 @@ def phase_kernels(dev):
         if name in cartpole:
             print_kernel(cartpole[name])
             k["at_cartpole_shape"] = {f: cartpole[name][f] for f in SLIM}
+            print_kernel(pixel[name])
+            k["at_pixel_ppo_shape"] = {f: pixel[name][f] for f in SLIM}
     gae_at_shapes("this checkout", returns, dev, GAE_SHAPES[1:])
     print_autograd_times("this checkout", loss_autograd_times(plk, batch, coefs))
     return out
@@ -1407,6 +1442,403 @@ def phase_cli(dev, ddpg_t) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Pixel observations (phases 13 to 16)
+# ---------------------------------------------------------------------------
+
+RENDER_TASKS = ("cheetah-run", "ball_in_cup-catch", "manipulator-bring_ball", "cartpole-balance")
+RENDER_B = 128
+# The card's frames against the CPU's from the same states: a channel is
+# clip(x, 0, 1)·255 truncated, so a rounding difference of x (sigmoid,
+# sqrt, sin, a few ulps between the devices) flips a channel that sits
+# within it of an integer; tests/test_torch_render.py holds the CPU to the
+# reference at the same bar.
+RENDER_MAX_LEVELS, RENDER_MAX_SHARE = 1, 0.01
+PIXEL_ITER = 128 * 128  # decision steps per iteration of the pixel recipes (128 envs x 128)
+# Card against CPU after a PPO or DDPG update on identical inputs: the
+# torsos and heads within the MLP updates' 1e-5. Adam moves an element by
+# ~lr·sign(g) even where g is rounding noise, and a few gradient elements of
+# the conv stem are sums over the batch and the positions that cancel to
+# that level (tests/test_torch_pixels.py, tests/test_torch_ddpg_pixels.py):
+# the stem's elements within 1e-5 but for a share of STEM_SHARE, and those
+# within the Adam steps' reach.
+TOL_PIXEL_PARITY, STEM_SHARE = 1e-5, 1e-3
+
+
+def median_ms(fn, reps: int = 5) -> float:
+    """Median of `reps` calls of `fn`, each timed with CUDA events, in ms."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_render(dev) -> dict:
+    """The rasteriser at B = 128 and 84 x 84 on a floating root (cheetah),
+    ball_in_cup, manipulator_bring_ball and a stick figure (cartpole), from
+    the same states (start states moved by N(0, 0.1)) on the card and the
+    CPU: the largest grey-level difference, the share of channels that
+    differ, and ms per call on the card (median of 5). Returns each task's
+    renderer and states for the profile phase."""
+    from surreal_tpu_torch.envs import make_env
+    from surreal_tpu_torch.envs.render import _geom_segments, make_renderer
+
+    cases = {}
+    for name in RENDER_TASKS:
+        env = make_env(name, device="cpu")
+        gen = torch.Generator().manual_seed(0)
+        q, _ = env._init(env.draw_reset(RENDER_B, gen))
+        q = q + 0.1 * torch.randn(q.shape, generator=gen)
+        render = make_renderer(env.model)
+        cpu = render(q)
+        q_dev = q.to(dev)
+        card = render(q_dev)
+        diff = (card.cpu().to(torch.int16) - cpu.to(torch.int16)).abs()
+        ms = median_ms(lambda: render(q_dev))
+        out = {"phase": "render", "task": name, "batch": RENDER_B, "hw": [84, 84],
+               "geoms": len(_geom_segments(env.model)[0]), "max_levels": int(diff.max()),
+               "share_differing": float((diff > 0).float().mean()), "ms_per_call": ms,
+               "frame_bytes": nbytes(card)}
+        print(json.dumps(out))
+        if out["max_levels"] > RENDER_MAX_LEVELS or out["share_differing"] > RENDER_MAX_SHARE:
+            fail(f"the card's frames of {name} differ from the CPU's: {out}")
+        if len(torch.unique(card)) < 5:
+            fail(f"the frames of {name} are nearly blank")
+        cases[name] = (render, q_dev, out)
+    return cases
+
+
+def params_by_name(modules: dict) -> dict:
+    return {f"{n}.{k}": p.detach().cpu() for n, m in modules.items()
+            for k, p in m.named_parameters()}
+
+
+def pixel_parity(label: str, cpu: tuple, card: tuple, reach: float) -> dict:
+    """(params, metrics) of an update on the CPU and on the card -> the
+    comparison's numbers; fails outside TOL_PIXEL_PARITY (the stems: the
+    share and `reach` bounds)."""
+    (p_c, m_c), (p_g, m_g) = cpu, card
+    errs = {k: (p_c[k] - p_g[k]).abs() for k in p_c}
+    stem = [k for k in errs if ".stem." in k or k.startswith("stem.")]
+    rest = [k for k in errs if k not in stem]
+    beyond = sum(int((errs[k] > TOL_PIXEL_PARITY).sum()) for k in stem)
+    total = sum(errs[k].numel() for k in stem)
+    out = {"params_max_abs_err_outside_stems": max(errs[k].max().item() for k in rest),
+           "stem_max_abs_err": max(errs[k].max().item() for k in stem),
+           "stem_share_beyond_tol": beyond / total, "stem_reach": reach,
+           "tol": TOL_PIXEL_PARITY, "stem_share_tol": STEM_SHARE,
+           "metrics_max_rel_err": max(abs(m_c[k] - m_g[k]) / max(1.0, abs(m_c[k]))
+                                      for k in m_c)}
+    if not (out["params_max_abs_err_outside_stems"] <= TOL_PIXEL_PARITY
+            and out["stem_share_beyond_tol"] <= STEM_SHARE and out["stem_max_abs_err"] <= reach
+            and out["metrics_max_rel_err"] <= 1e-4):
+        fail(f"{label}: the card's update disagrees with the CPU's: {out}")
+    return out
+
+
+def pixel_ppo_trainer(dev, extra_learner=None):
+    """PPOTrainer at the cheetah-run pixel recipe, built from the CLI's
+    configs (surreal_tpu_torch/envs/recipes.py), with the fused loss."""
+    from surreal_tpu_torch.cli.configs import generate_configs, to_algo_config
+    from surreal_tpu_torch.train import PPOTrainer
+
+    learner, env_cfg, _ = generate_configs("ppo", {
+        "env": {"env_name": "cheetah-run", "pixel_obs": True},
+        "learner": {"fused_loss": True, **(extra_learner or {})}})
+    return PPOTrainer("cheetah-run", to_algo_config(learner), num_envs=int(env_cfg.num_envs),
+                      hidden=tuple(learner.hidden), seed=0, device=dev, pixel_obs=True,
+                      pixel_kwargs=env_cfg.pixel.to_dict())
+
+
+def phase_pixel_ppo(dev):
+    """PPO from pixels on cheetah-run at its recipe (128 envs, action repeat
+    4, 3 stacked grayscale 84 x 84 frames, the conv stem and (256, 256),
+    horizon 128, 4 epochs x 8 minibatches of 2,048, entropy 0.003, lr 1e-4,
+    lr_max_scale 2) with the fused loss, for two iterations: the first
+    whole, the second split into rollout and update, the rollout's render
+    and policy shares timed alone at its states. Checks the launch counts
+    (the loss 32 + 32 an iteration, GAE 0), then one update on identical
+    inputs on the card and on the CPU."""
+    from surreal_tpu_torch.algos import ppo
+
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    t = pixel_ppo_trainer(dev)
+    cfg = t.cfg
+    kernels = path_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    m = t.run(1, log_every=1)[-1]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    traj, t.env_state, t.obs, t.ep_ret, _ = ppo.rollout(
+        cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.ep_ret, t.generator)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _, last = ppo.update(cfg, t.state, traj, t.generator)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    q = t.env_state.inner.q
+    render_ms = median_ms(lambda: t.env._frame(q))
+    with torch.no_grad():
+        policy_ms = median_ms(lambda: t.state.net(t.obs))
+    steps = cfg.epochs * cfg.num_minibatches
+    rollout_s, update_s = t2 - t1, t3 - t2
+    ar = t.env.action_repeat
+    out = {"phase": "ppo_pixel_cheetah", "num_envs": t.num_envs, "action_repeat": ar,
+           "frame_stack": t.env.frame_stack, "obs_shape": list(t.obs.shape[1:]),
+           "obs_dtype": str(t.obs.dtype),
+           "minibatch_rows": cfg.horizon * t.num_envs // cfg.num_minibatches,
+           "first_iteration_s": t1 - t0, "s_per_iteration": rollout_s + update_s,
+           "decision_steps_per_s": PIXEL_ITER / (rollout_s + update_s),
+           "env_steps_per_s": PIXEL_ITER * ar / (rollout_s + update_s),
+           "rollout_s": rollout_s, "ms_per_decision_step": rollout_s / cfg.horizon * 1e3,
+           "render_ms_per_call": render_ms, "render_s_per_rollout": render_ms * cfg.horizon / 1e3,
+           "policy_ms_per_call": policy_ms, "policy_s_per_rollout": policy_ms * cfg.horizon / 1e3,
+           "physics_and_rest_s": rollout_s - (render_ms + policy_ms) * cfg.horizon / 1e3,
+           "update_s": update_s, "ms_per_minibatch_step": update_s / steps * 1e3,
+           "trajectory_obs_bytes": nbytes(traj.obs), "kernel_launches": launches,
+           "iterations": 2, "launches_per_iteration": {n: v / 2 for n, v in launches.items()},
+           "policy_loss": m["policy_loss"], "value_loss": m["value_loss"], "kl": m["kl"],
+           "entropy": m["entropy"], "reward_per_step": m["reward_per_step"],
+           "max_memory_allocated": peak, "memory_allocated_before": held_before,
+           "peak_above_held_before": peak - held_before}
+    check_finite("pixel PPO", {k: float(v) for k, v in last.items()} | m)
+    want = {"gae": 0, "ppo_loss_fwd": steps * 2, "ppo_loss_bwd": steps * 2}
+    if launches != want:
+        fail(f"pixel PPO launch counts {launches} != {want}")
+    if traj.obs.dtype != torch.uint8 or nbytes(traj.obs) != 128 * 128 * 84 * 84 * 3:
+        fail(f"the pixel trajectory is not uint8 frame stacks: {traj.obs.dtype} {traj.obs.shape}")
+
+    # one update (1 epoch of 2 minibatch steps of 2,048 rows) on identical
+    # inputs: the first 32 steps of the rollout, the same permutation
+    short_cfg = dataclasses.replace(cfg, epochs=1, num_minibatches=2)
+    short = {k: x[:32].cpu() for k, x in vars(traj).items()}
+    perms = torch.randperm(32 * t.num_envs, generator=torch.Generator().manual_seed(0))[None]
+    results = {}
+    for d in ("cpu", dev):
+        net = copy.deepcopy(t.state.net).to(d)
+        st = ppo.init_state(short_cfg, net, 1)
+        st, metrics = ppo.update(short_cfg, st, ppo.Trajectory(
+            **{k: x.to(d) for k, x in short.items()}), None, perms.to(d))
+        results[d] = (params_by_name({"net": net}), {k: float(x) for k, x in metrics.items()})
+    out["update_card_vs_cpu"] = pixel_parity("pixel PPO", results["cpu"], results[dev],
+                                             reach=2 * cfg.lr * 1.01)
+    print(json.dumps(out))
+    return t, launches, out
+
+
+def phase_pixel_ddpg(dev):
+    """DDPG from pixels on ball_in_cup-catch at the evidence's configuration
+    (results/bic_pixel_ddpg_aug_r5.txt line 1: 128 envs, action repeat 2,
+    replay_capacity 100,000, min_replay 5,000, shared_encoder, aug_shift 4;
+    the defaults otherwise: actor (300, 200), critic (400, 300), batch 256,
+    16 env steps and 16 updates an iteration) until two iterations have
+    updated (the fourth; the warm-up gate opens at the third), the last
+    split into rollout and update block. Checks the ring's uint8 frames,
+    the counts, that the actor's stem equals the critic's, no kernel launch,
+    and one block of 2 updates on identical inputs (ring, indices, shift
+    offsets) on the card and on the CPU."""
+    from surreal_tpu_torch.algos import ddpg
+    from surreal_tpu_torch.data.replay import ReplayState
+    from surreal_tpu_torch.train import DDPGTrainer
+
+    cfg = ddpg.DDPGConfig(replay_capacity=100_000, min_replay=5_000, shared_encoder=True,
+                          aug_shift=4)
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    t = DDPGTrainer("ball_in_cup-catch", cfg, num_envs=128, seed=0, device=dev,
+                    pixel_obs=True, pixel_kwargs={"action_repeat": 2})
+    kernels = path_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    m = t.run(3, log_every=3)[-1]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if m["updates"] != cfg.updates_per_iteration:
+        fail(f"updates should begin at iteration 3: {m['updates']} done after 3")
+    (t.replay, t.env_state, t.obs, t.ou_state, t.ep_ret, _, _) = ddpg.rollout(
+        cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.ou_state, t.sigma, t.ep_ret,
+        t.generator, t.replay)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    _, last = ddpg.update(cfg, t.state, t.replay, t.generator)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    ring_obs = t.replay.data["obs"]
+    stems_equal = all(torch.equal(a, c) for a, c in zip(t.state.actor.stem.parameters(),
+                                                        t.state.critic.stem.parameters()))
+    out = {"phase": "ddpg_pixel_ball_in_cup", "num_envs": 128, "action_repeat": 2,
+           "capacity_t": t.replay.capacity_t, "ring_transitions": t.replay.capacity_t * 128,
+           "ring_obs_bytes": nbytes(ring_obs), "ring_bytes": nbytes(*t.replay.data.values()),
+           "ring_obs_dtype": str(ring_obs.dtype), "first_3_iterations_s": t1 - t0,
+           "rollout_s": t2 - t1, "ms_per_decision_step": (t2 - t1) / cfg.rollout_steps * 1e3,
+           "update_block_s": t3 - t2,
+           "ms_per_update": (t3 - t2) / cfg.updates_per_iteration * 1e3,
+           "s_per_iteration": t3 - t1,
+           "env_steps_per_s": t.steps_per_iteration * 2 / (t3 - t1),
+           "updates_done": t.state.update_step, "replay_total": t.replay.total,
+           "stems_equal_after_sync": stems_equal, "kernel_launches": launches,
+           "critic_loss": float(last["critic_loss"]), "actor_loss": float(last["actor_loss"]),
+           "q_mean": float(last["q_mean"]), "max_memory_allocated": peak,
+           "peak_above_held_before": peak - held_before}
+    check_finite("pixel DDPG", {k: float(v) for k, v in last.items()})
+    if any(launches.values()):
+        fail(f"the pixel DDPG path launched {launches}: the reference's reaches none of these")
+    if ring_obs.dtype != torch.uint8 or nbytes(ring_obs) != 99_968 * 84 * 84 * 3:
+        fail(f"the ring is not 99,968 uint8 frame stacks: {ring_obs.dtype} {ring_obs.shape}")
+    if not stems_equal or t.state.update_step != 2 * cfg.updates_per_iteration:
+        fail(f"after 2 update blocks: stems equal {stems_equal}, updates {t.state.update_step}")
+
+    # a block of 2 updates on identical inputs: the ring, indices and shifts
+    U, batch = 2, cfg.batch_size
+    gen = torch.Generator().manual_seed(0)
+    oldest = max(t.replay.total - t.replay.capacity_t, 0)
+    valid = t.replay.total - cfg.n_step - oldest
+    indices = [(oldest + torch.randint(0, valid, (batch,), generator=gen),
+                torch.randint(0, 128, (batch,), generator=gen)) for _ in range(U)]
+    shifts = [tuple(torch.randint(0, 2 * cfg.aug_shift + 1, (batch, 2), generator=gen)
+                    for _ in range(2)) for _ in range(U)]
+    block = dataclasses.replace(cfg, updates_per_iteration=U)
+    results = {}
+    for d in ("cpu", dev):
+        state = copy.deepcopy(t.state)
+        for n in ("actor", "critic", "target_actor", "target_critic"):
+            getattr(state, n).to(d)
+        for opt in (state.actor_opt, state.critic_opt):
+            opt.mu = {k: v.to(d) for k, v in opt.mu.items()}
+            opt.nu = {k: v.to(d) for k, v in opt.nu.items()}
+        ring = ReplayState(data={k: v.to(d) for k, v in t.replay.data.items()},
+                           total=t.replay.total)
+        state, metrics = ddpg.update(block, state, ring, None,
+                                     [(a.to(d), b.to(d)) for a, b in indices],
+                                     aug_offsets=[(a.to(d), b.to(d)) for a, b in shifts])
+        results[d] = (params_by_name({n: getattr(state, n) for n in (
+            "actor", "critic", "target_actor", "target_critic")}),
+            {k: float(x) for k, x in metrics.items()})
+        del ring
+    out["update_block_card_vs_cpu"] = pixel_parity(
+        "pixel DDPG", results["cpu"], results[dev], reach=U * cfg.critic_lr * 1.01)
+    print(json.dumps(out))
+    return t, launches, out
+
+
+def phase_cli_pixel(dev) -> dict:
+    """`train ppo --env.env_name cheetah-run --env.pixel_obs true` through
+    the CLI at the recipe with the fused loss for two iterations, a
+    checkpoint each, with `--session.video true`: the evaluation at the end
+    records one GIF of video_steps frames, which must decode (by the port's
+    own reader: the card's machine has no imaging package) to that many
+    168 x 168 frames; then `eval --best`. Returns the loss kernels' launches
+    on the training run."""
+    from surreal_tpu_torch.train.video import read_gif
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_pixel_cli_")
+    kernels = path_kernels()
+    video_steps = 16
+    out = {"phase": "cli_ppo_pixel_cheetah"}
+    try:
+        exp = os.path.join(root, "pixel")
+        for k in kernels.values():
+            k.launches = 0
+        with LogLines() as lines:
+            t0 = time.perf_counter()
+            cli_stdout(["train", "ppo", "--env.env_name", "cheetah-run", "--env.pixel_obs",
+                        "true", "--learner.fused_loss", "true", "--session.total_env_steps",
+                        str(2 * PIXEL_ITER), "--session.eval_every_steps", str(2 * PIXEL_ITER),
+                        "--session.checkpoint_every_steps", str(PIXEL_ITER),
+                        "--session.video", "true", "--session.video_steps", str(video_steps),
+                        "--session.results_dir", root, "--session.experiment_name", "pixel",
+                        "--device", str(dev)])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        launches = {n: k.launches for n, k in kernels.items()}
+        gif = os.path.join(exp, "videos", f"steps_{2 * PIXEL_ITER}.gif")
+        frames = read_gif(gif) if os.path.exists(gif) else None
+        with open(os.path.join(exp, "config.json")) as f:
+            saved = json.load(f)
+        ev = json.loads(cli_stdout(["eval", "--experiment", exp, "--best", "--episodes", "16",
+                                    "--device", str(dev)]).strip().splitlines()[-1])
+        out.update(train_2_iterations_with_eval_and_video_s=t1 - t0, kernel_launches=launches,
+                   evals=evals_logged(lines), video=[m for m in lines if m.startswith("video")],
+                   gif_bytes=os.path.getsize(gif) if frames is not None else None,
+                   gif_frames=None if frames is None else list(frames.shape),
+                   pixel_config=saved["env"]["pixel"], learner_lr=saved["learner"]["lr"],
+                   eval_best=ev, phase_s=time.perf_counter() - t_phase)
+        print(json.dumps(out))
+        want = {"gae": 0, "ppo_loss_fwd": 64, "ppo_loss_bwd": 64}
+        if launches != want:
+            fail(f"the CLI pixel path launched {launches}, expected {want}")
+        if frames is None or frames.shape != (video_steps, 168, 168, 3):
+            fail(f"the eval video {gif} is missing or not {video_steps} frames of 168 x 168")
+        if len(np.unique(frames)) < 5:
+            fail("the eval video's frames are nearly blank")
+        if not np.isfinite(ev["return_mean"]) or ev["episodes"] != 16:
+            fail(f"eval --best printed {ev}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def pixel_profile(t, times, render_cases):
+    """Under torch.profiler (after every timing): the device kernels of one
+    render call per task, and of the pixel PPO cell's rollout cut to 2 of
+    its 128 decision steps and of one epoch of its update (8 of its 32
+    minibatch steps): kernels per decision step, the render's share of the
+    rollout's device time, and the idle shares against the unprofiled
+    times of the same parts."""
+    from surreal_tpu_torch.algos import ppo
+
+    renders = {}
+    for name, (render, q, _) in render_cases.items():
+        n, busy = profiled(lambda: render(q))
+        renders[name] = {"kernels_per_call": n, "device_ms_per_call": busy * 1e3}
+    steps = 2
+    short = dataclasses.replace(t.cfg, horizon=steps)
+    full, t.env_state, t.obs, t.ep_ret, _ = ppo.rollout(
+        t.cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.ep_ret, t.generator)
+
+    def rollout():
+        t.env_state, t.obs, t.ep_ret = ppo.rollout(
+            short, t.env, t._flatten, t.state, t.env_state, t.obs, t.ep_ret, t.generator)[1:4]
+
+    q = t.env_state.inner.q
+    n_render, busy_render = profiled(lambda: t.env._frame(q))
+    n_roll, busy_roll = profiled(rollout)
+    epoch = dataclasses.replace(t.cfg, epochs=1)
+    n_upd, busy_upd = profiled(lambda: ppo.update(epoch, t.state, full, t.generator))
+    roll_wall = times["ms_per_decision_step"] * 1e-3 * steps
+    epoch_wall = times["update_s"] / t.cfg.epochs
+    out = {"phase": "pixel_profile", "render_by_task": renders,
+           "rollout_steps_profiled": steps, "rollout_kernels": n_roll,
+           "kernels_per_decision_step": n_roll / steps,
+           "render_kernels_per_decision_step": n_render,
+           "render_share_of_rollout_device_time": busy_render * steps / busy_roll,
+           "minibatch_steps_profiled": t.cfg.num_minibatches, "epoch_kernels": n_upd,
+           "kernels_per_minibatch_step": n_upd / t.cfg.num_minibatches,
+           "rollout_busy_s": busy_roll, "epoch_busy_s": busy_upd,
+           "unprofiled_s_of_the_same_rollout_steps": roll_wall,
+           "unprofiled_s_of_one_epoch": epoch_wall,
+           "rollout_idle_share": 1 - busy_roll / roll_wall,
+           "update_idle_share": 1 - busy_upd / epoch_wall}
+    print(json.dumps(out))
+    if n_roll == 0 or n_upd == 0 or n_render == 0:
+        fail("the profiler saw no device kernel in the pixel PPO cell")
+
+
 def learn(out_dir: str | None, flags: list[str]) -> None:
     """Trains cartpole-balance PPO through the port's CLI to the recipe's
     budget (4,000,000 env steps, evals every 15 iterations) with the fused
@@ -1787,15 +2219,23 @@ def main():
     phase_envs(dev)
     finger_trainer, finger_launches, finger_times = phase_finger(dev)
     cli_launches = phase_cli(dev, ddpg_trainer)
+    render_cases = phase_render(dev)
+    pixel_trainer, pixel_launches, pixel_times = phase_pixel_ppo(dev)
+    pixel_ddpg_launches = phase_pixel_ddpg(dev)[1]  # its 2.1 GB ring is freed here
+    cli_pixel_launches = phase_cli_pixel(dev)
     breakdown(trainer)
     new_cells_profile(ddpg_trainer, ddpg_times, lstm_trainer, lstm_times)
     finger_profile(finger_trainer, finger_times)
+    pixel_profile(pixel_trainer, pixel_times, render_cases)
     for name, k in kernels.items():
         # every number is a reading: each path was driven with the counts at
         # 0 just before it and read just after its last update
         by_path = {"ppo": launches[name], "ppo_lstm": lstm_launches[name],
                    "ddpg": ddpg_launches[name], "ppo_finger": finger_launches[name],
-                   "cli_ppo_cartpole": cli_launches[name]}
+                   "cli_ppo_cartpole": cli_launches[name],
+                   "ppo_pixel_cheetah": pixel_launches[name],
+                   "ddpg_pixel_ball_in_cup": pixel_ddpg_launches[name],
+                   "cli_ppo_pixel_cheetah": cli_pixel_launches[name]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         for extra in ("tol", "bytes", "call_ms", "plain_call_ms"):

@@ -1,6 +1,5 @@
 """DDPG: off-policy TD learning with uniform on-device replay and target
-networks (port of surreal_tpu/algos/ddpg.py, single device, vector
-observations).
+networks (port of surreal_tpu/algos/ddpg.py, single device).
 
 A deterministic tanh actor explores with Ornstein-Uhlenbeck or Gaussian
 noise, scaled per env by a ladder so the lockstep envs explore at different
@@ -11,6 +10,13 @@ As in `algos/ppo.py`, the steps run eagerly and the train state (the four
 networks, the two Adam states) is updated in place. `rollout` accepts the
 pre-drawn noise `eps` and `update` pre-drawn replay indices and
 target-smoothing noise; tests feed the reference's draws.
+
+Pixel observations are stored raw (uint8) in the ring and scaled inside
+the conv stems. Two pixel-mode knobs: `shared_encoder` (the critic's stem
+is the one encoder, trained by the TD loss only; the actor holds a
+gradient-stopped copy, refreshed after every update by `sync_encoder`) and
+`aug_shift` (DrQ's random shift of the sampled frames on the update path,
+`random_shift`).
 """
 
 from __future__ import annotations
@@ -55,9 +61,8 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class DDPGConfig:
-    """The reference's DDPGConfig: same fields, same defaults. The pixel
-    knobs (`shared_encoder`, `aug_shift`) and the sharded optimizer must keep
-    their off values."""
+    """The reference's DDPGConfig: same fields, same defaults. The sharded
+    optimizer must keep its off values."""
 
     rollout_steps: int = 16  # env steps per train iteration
     updates_per_iteration: int = 16
@@ -92,10 +97,6 @@ class DDPGConfig:
     zero_shards: int = 1
 
     def __post_init__(self):
-        if self.shared_encoder or self.aug_shift > 0:
-            raise NotImplementedError(
-                "shared_encoder and aug_shift are pixel-mode knobs, which come with the "
-                "pixel observations (ROADMAP.md, Queue A)")
         if self.zero_optimizer or self.zero_shards != 1:
             raise NotImplementedError(
                 "zero_optimizer is a multi-device feature that is not ported yet "
@@ -144,13 +145,43 @@ def noise_ladder(cfg: DDPGConfig, num_envs: int) -> np.ndarray:
     return np.geomspace(cfg.sigma_min, cfg.sigma_max, num_envs).astype(np.float32)
 
 
+def sync_encoder(actor: DDPGActor, critic: DDPGCritic) -> None:
+    """Copies the critic's conv stem into the actor's, in place (the critic's
+    is the one encoder in shared-encoder mode)."""
+    with torch.no_grad():
+        for a, c in zip(actor.stem.parameters(), critic.stem.parameters(), strict=True):
+            a.copy_(c)
+
+
+def random_shift(obs: Tensor, pad: int, generator: torch.Generator | None = None,
+                 offsets: Tensor | None = None) -> Tensor:
+    """DrQ's augmentation of (B, H, W, C) frames: edge-pad by `pad`, then
+    crop H x W at a per-sample offset (row, column) in [0, 2·pad], drawn
+    from `generator` unless `offsets` (B, 2) is given. A gather with clamped
+    indices, which is what cropping an edge-padded frame reads: uint8 stays
+    uint8."""
+    B, H, W, _ = obs.shape
+    if offsets is None:
+        offsets = torch.randint(0, 2 * pad + 1, (B, 2), generator=generator,
+                                device=obs.device)
+    offsets = offsets.to(obs.device)
+    rows = torch.clamp(offsets[:, 0:1] - pad + torch.arange(H, device=obs.device), 0, H - 1)
+    cols = torch.clamp(offsets[:, 1:2] - pad + torch.arange(W, device=obs.device), 0, W - 1)
+    b = torch.arange(B, device=obs.device)[:, None, None]
+    return obs[b, rows[:, :, None], cols[:, None, :]]
+
+
 def init_replay(cfg: DDPGConfig, num_envs: int, obs_dim: int, action_dim: int,
-                device: torch.device | str) -> ReplayState:
+                device: torch.device | str, obs_shape: tuple[int, ...] | None = None,
+                obs_dtype: torch.dtype = torch.float32) -> ReplayState:
     """The ring on `device`: replay_capacity transitions across the envs,
-    and never fewer steps than one rollout chunk."""
+    and never fewer steps than one rollout chunk. `obs_shape`/`obs_dtype`
+    replace the flat (obs_dim,) float32 layout: pixel frames are stored raw,
+    uint8 (21,168 bytes a frame stack at 84 x 84 x 3)."""
     capacity_t = max(cfg.replay_capacity // num_envs, cfg.rollout_steps)
+    shape = (num_envs,) + (tuple(obs_shape) if obs_shape is not None else (obs_dim,))
     example = {
-        "obs": torch.zeros(num_envs, obs_dim, device=device),
+        "obs": torch.zeros(shape, dtype=obs_dtype, device=device),
         "action": torch.zeros(num_envs, action_dim, device=device),
         "reward": torch.zeros(num_envs, device=device),
         "done": torch.zeros(num_envs, dtype=torch.bool, device=device),
@@ -219,21 +250,30 @@ def _adam_step(module: torch.nn.Module, loss: Tensor, opt: AdamState, lr: float,
     module's parameters, in place: optax's default eps of 1e-8, not PPO's
     1e-5. The gradient is taken with respect to this module's parameters
     only, so a loss that runs through another network leaves it alone."""
-    names, params = zip(*module.named_parameters())
-    grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    named = dict(module.named_parameters())
+    # a detached stem is not in the loss's graph: its gradient is zero, as
+    # the reference's stop_gradient makes it
+    frozen = {n for n in named if n.startswith("stem.")} if getattr(
+        module, "detach_stem", False) else set()
+    live = [n for n in named if n not in frozen]
+    grads = dict(zip(live, torch.autograd.grad(loss, [named[n] for n in live])))
+    grads = {n: grads[n] if n in grads else torch.zeros_like(p) for n, p in named.items()}
     with torch.no_grad():
         updates = scale_by_adam(clip_by_global_norm(grads, max_grad_norm), opt, eps=1e-8)
-        for n, p in zip(names, params):
+        for n, p in named.items():
             p.add_(-lr * updates[n])
 
 
 def update(cfg: DDPGConfig, state: DDPGTrainState, replay: ReplayState,
-           generator: torch.Generator | None, indices=None, target_eps: Tensor | None = None):
+           generator: torch.Generator | None, indices=None, target_eps: Tensor | None = None,
+           aug_offsets=None):
     """`updates_per_iteration` critic and actor steps on batches sampled from
     `replay`; updates `state` in place. `indices`, if given, is one (a, b)
-    pair of replay index tensors per update, and `target_eps` (U, batch, A)
-    the standard-normal draws of the target smoothing: they replace the draws
-    from `generator`. Returns (state, metrics of the last update)."""
+    pair of replay index tensors per update, `target_eps` (U, batch, A)
+    the standard-normal draws of the target smoothing, and `aug_offsets` one
+    pair of (batch, 2) shift offsets (obs, next obs) per update: they
+    replace the draws from `generator`. Returns (state, metrics of the last
+    update)."""
     metrics = {}
     for u in range(cfg.updates_per_iteration):
         with torch.no_grad():
@@ -242,6 +282,10 @@ def update(cfg: DDPGConfig, state: DDPGTrainState, replay: ReplayState,
             obs = _norm(cfg, state, w["obs"][0])
             action = w["action"][0]
             next_obs = _norm(cfg, state, w["obs"][-1])
+            if cfg.aug_shift > 0:  # DrQ random shift, on the update path only
+                off, next_off = (None, None) if aug_offsets is None else aug_offsets[u]
+                obs = random_shift(obs, cfg.aug_shift, generator, off)
+                next_obs = random_shift(next_obs, cfg.aug_shift, generator, next_off)
             G, cont = nstep_returns(w["reward"][:-1], w["done"][:-1], cfg.gamma)
             next_a = state.target_actor(next_obs)
             if cfg.target_noise > 0:  # TD3 target-policy smoothing
@@ -266,6 +310,11 @@ def update(cfg: DDPGConfig, state: DDPGTrainState, replay: ReplayState,
             a_loss = -torch.mean(state.critic(obs, state.actor(obs)))
         if do_actor:
             _adam_step(state.actor, a_loss, state.actor_opt, cfg.actor_lr, cfg.max_grad_norm)
+        if cfg.shared_encoder:
+            # after the actor_delay gate, so the copy is fresh on critic-only
+            # steps too, and before the targets follow the actor
+            sync_encoder(state.actor, state.critic)
+        if do_actor:
             hard = cfg.hard_sync_every > 0
             if not hard or step_no % cfg.hard_sync_every == 0:
                 with torch.no_grad():
@@ -282,7 +331,8 @@ def update(cfg: DDPGConfig, state: DDPGTrainState, replay: ReplayState,
 def train_step(cfg: DDPGConfig, env: Environment, flatten_obs: Callable, state: DDPGTrainState,
                replay: ReplayState, env_state: EnvState, obs: Tensor, ou_state: Tensor,
                sigma: Tensor, ep_ret: Tensor, generator: torch.Generator,
-               eps: Tensor | None = None, indices=None, target_eps: Tensor | None = None):
+               eps: Tensor | None = None, indices=None, target_eps: Tensor | None = None,
+               aug_offsets=None):
     """One iteration: `rollout_steps` env steps, then the updates once the
     replay holds `min_replay` transitions (zero metrics before that).
     Returns (state, replay, env_state, obs, ou_state, ep_ret, metrics)."""
@@ -292,7 +342,7 @@ def train_step(cfg: DDPGConfig, env: Environment, flatten_obs: Callable, state: 
     if cfg.use_zfilter:
         state.zfilter = zfilter_update(state.zfilter, chunk["obs"])
     if replay.total * replay.num_envs >= cfg.min_replay:
-        state, metrics = update(cfg, state, replay, generator, indices, target_eps)
+        state, metrics = update(cfg, state, replay, generator, indices, target_eps, aug_offsets)
     else:
         zero = torch.zeros((), device=obs.device)
         metrics = {"critic_loss": zero, "actor_loss": zero, "q_mean": zero}

@@ -195,9 +195,8 @@ def rollout(cfg: PPOConfig, env: Environment, flatten_obs: Callable,
     replaces the standard-normal action noise drawn from `generator`.
     Returns (traj, env_state, obs, ep_ret, episode stats)."""
     net = acting_params(cfg, state)
-    B = obs.shape[0]
-    done_sum = obs.new_zeros(B)
-    done_ret = obs.new_zeros(B)
+    done_sum = torch.zeros_like(ep_ret)
+    done_ret = torch.zeros_like(ep_ret)
     cols: dict[str, list] = {f.name: [] for f in dataclasses.fields(Trajectory)
                              if f.name != "next_value"}
     term_values = []

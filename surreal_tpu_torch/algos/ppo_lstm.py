@@ -70,9 +70,8 @@ def rollout(cfg: PPOConfig, env: Environment, flatten_obs: Callable, state: PPOT
     episode stats)."""
     net = acting_params(cfg, state)
     init_carry = carry
-    B = obs.shape[0]
-    done_sum = obs.new_zeros(B)
-    done_ret = obs.new_zeros(B)
+    done_sum = torch.zeros_like(ep_ret)
+    done_ret = torch.zeros_like(ep_ret)
     cols: dict[str, list] = {f.name: [] for f in dataclasses.fields(LSTMTrajectory)
                              if f.name not in ("next_value", "init_carry")}
     term_values = []
@@ -116,7 +115,7 @@ def _sequence_outputs(net: PPOActorCritic, obs_seq: Tensor, done_seq: Tensor,
     input's share of the gates is one matmul over the whole sequence before
     the loop, and the torsos and heads, which have no state, take all T
     outputs at once after it."""
-    input_gates = net.lstm.input_gates(obs_seq)
+    input_gates = net.lstm.input_gates(net.encode(obs_seq))
     carry = tuple(c.detach() for c in init_carry)
     outs = []
     for t in range(obs_seq.shape[0]):

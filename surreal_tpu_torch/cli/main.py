@@ -53,9 +53,6 @@ def _check_ported(learner: Config, env_cfg: Config, session: Config) -> None:
     """Raises NotImplementedError, naming its ROADMAP.md Queue A item, for a
     configuration whose path the port does not have yet."""
     missing = []
-    if env_cfg.pixel_obs or session.video:
-        missing.append("env.pixel_obs and session.video need pixel observations and the "
-                       "rasteriser (A12)")
     if str(learner.compute_dtype) != "float32":
         missing.append(f"learner.compute_dtype {learner.compute_dtype!r} (A13)")
     if learner.get("overlap"):
@@ -74,20 +71,22 @@ def _check_ported(learner: Config, env_cfg: Config, session: Config) -> None:
 def _build_trainer(learner: Config, env_cfg: Config, session: Config, device: str):
     seed = int(session.seed)
     algo_cfg = to_algo_config(learner)
+    pixels = {"pixel_obs": bool(env_cfg.pixel_obs),
+              "pixel_kwargs": env_cfg.pixel.to_dict() if env_cfg.pixel_obs else None}
     if learner.algo == "ppo":
         from surreal_tpu_torch.train import PPOTrainer
 
         return PPOTrainer(
             env_cfg.env_name, algo_cfg, num_envs=int(env_cfg.num_envs), seed=seed,
             hidden=tuple(learner.hidden), device=device, use_lstm=bool(learner.use_lstm),
-            lstm_size=int(learner.lstm_size),
+            lstm_size=int(learner.lstm_size), **pixels,
         )
     from surreal_tpu_torch.train import DDPGTrainer
 
     return DDPGTrainer(
         env_cfg.env_name, algo_cfg, num_envs=int(env_cfg.num_envs), seed=seed,
         actor_hidden=tuple(learner.actor_hidden), critic_hidden=tuple(learner.critic_hidden),
-        device=device,
+        device=device, **pixels,
     )
 
 
@@ -161,6 +160,15 @@ def cmd_train(algo: str, overrides: dict, device: str = "cuda") -> int:
             tb.write(env_steps, ev, section="eval")
             log.info("eval @ %.2e steps: %.1f ± %.1f", env_steps, ev["return_mean"],
                      ev["return_std"])
+            pol = trainer.deterministic_policy() if session.video else None
+            if pol is not None:  # the reference's eval-worker videos
+                from surreal_tpu_torch.train.video import record_video
+
+                policy_fn, zf = pol
+                path = os.path.join(exp_dir, "videos", f"steps_{env_steps}.gif")
+                record_video(trainer.env, policy_fn, path, steps=int(session.video_steps),
+                             zfilter=zf, flatten=trainer._flatten)
+                log.info("video -> %s", path)
         if ckpt_trk.track(env_steps) or finished:
             ckpt.save(env_steps, trainer.full_state, score=score)
     ckpt.close()

@@ -42,6 +42,14 @@ class EnvState:
     qd: Tensor  # (B, nv)
     t: Tensor  # (B,) int32 steps taken this episode
 
+    def to_dict(self) -> dict:
+        """The tensors by field name, for a checkpoint's full state."""
+        return {"q": self.q, "qd": self.qd, "t": self.t}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> EnvState:
+        return cls(**d)
+
 
 @dataclasses.dataclass(frozen=True)
 class Timestep:

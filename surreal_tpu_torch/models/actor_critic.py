@@ -1,7 +1,7 @@
-"""PPO actor-critic network (port of surreal_tpu/models/actor_critic.py,
-vector observations): an optional LSTM, separate actor and critic MLP
-torsos, a Gaussian mean head, a value head and a state-independent log-std
-clipped to [-8, 2]."""
+"""PPO actor-critic network (port of surreal_tpu/models/actor_critic.py):
+an optional conv stem for pixel observations (one, shared by both torsos),
+an optional LSTM, separate actor and critic MLP torsos, a Gaussian mean
+head, a value head and a state-independent log-std clipped to [-8, 2]."""
 
 from __future__ import annotations
 
@@ -10,18 +10,22 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from surreal_tpu_torch.models.blocks import MLP, LSTMCell
+from surreal_tpu_torch.models.blocks import MLP, ConvStem, LSTMCell
 
 
 class PPOActorCritic(nn.Module):
-    def __init__(self, obs_dim: int, action_dim: int, hidden: Sequence[int] = (64, 64),
-                 activation: str = "tanh", init_log_std: float = 0.0,
-                 pixel_obs: bool = False, use_lstm: bool = False, lstm_size: int = 128,
-                 generator: torch.Generator | None = None):
+    """`obs_dim` is the flat observation's size, or with `pixel_obs` the
+    frame stack's shape (H, W, C)."""
+
+    def __init__(self, obs_dim: int | Sequence[int], action_dim: int,
+                 hidden: Sequence[int] = (64, 64), activation: str = "tanh",
+                 init_log_std: float = 0.0, pixel_obs: bool = False, use_lstm: bool = False,
+                 lstm_size: int = 128, generator: torch.Generator | None = None):
         super().__init__()
+        self.pixel_obs = pixel_obs
         if pixel_obs:
-            raise NotImplementedError(
-                "pixel actor-critics are not ported yet (ROADMAP.md, Queue A)")
+            self.stem = ConvStem(obs_dim, generator=generator)
+            obs_dim = self.stem.out_dim
         self.use_lstm = use_lstm
         self.lstm_size = lstm_size
         torso_in = lstm_size if use_lstm else obs_dim
@@ -47,12 +51,19 @@ class PPOActorCritic(nn.Module):
         log_std = torch.clamp(self.log_std, -8.0, 2.0)
         return mean, log_std, value
 
+    def encode(self, obs: torch.Tensor) -> torch.Tensor:
+        """The torsos' (or the LSTM's) input: the stem's features of pixel
+        obs (..., H, W, C), else obs (..., D) itself."""
+        return self.stem(obs) if self.pixel_obs else obs
+
     def forward(self, obs: torch.Tensor, carry=None):
-        """obs (..., D) -> (mean, log_std, value); with `use_lstm`, `carry`
-        is the LSTM state `(c, h)` and the new carry is returned fourth."""
+        """obs (..., D) or (..., H, W, C) -> (mean, log_std, value); with
+        `use_lstm`, `carry` is the LSTM state `(c, h)` and the new carry is
+        returned fourth."""
+        x = self.encode(obs)
         if not self.use_lstm:
-            return self.heads(obs)
-        carry, x = self.lstm(carry, obs)
+            return self.heads(x)
+        carry, x = self.lstm(carry, x)
         return (*self.heads(x), carry)
 
     def initial_carry(self, batch_shape: tuple[int, ...] = ()):

@@ -1,5 +1,5 @@
-"""Network blocks (port of surreal_tpu/models/blocks.py: the MLP torso;
-and the LSTM cell the reference takes from flax)."""
+"""Network blocks (port of surreal_tpu/models/blocks.py: the MLP torso and
+the conv stem; and the LSTM cell the reference takes from flax)."""
 
 from __future__ import annotations
 
@@ -8,14 +8,16 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 _ACTIVATIONS = {"tanh": torch.tanh, "relu": torch.relu}
 
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-    """flax's default Dense kernel init: truncated normal on [-2σ, 2σ] with
-    variance 1/fan_in after truncation. `weight` is (out, in)."""
-    fan_in = weight.shape[1]
+    """flax's default Dense and Conv kernel init: truncated normal on
+    [-2σ, 2σ] with variance 1/fan_in after truncation. `weight` is (out, in)
+    or (out, in, kh, kw)."""
+    fan_in = weight[0].numel()
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # truncation correction
     with torch.no_grad():
         return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
@@ -52,6 +54,56 @@ class MLP(nn.Module):
                 x = self.layer_norm(x)
             x = self.activation(x)
         return x
+
+
+def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """XLA's 'SAME' padding of one spatial axis (flax's nn.Conv default):
+    the output has ceil(size / stride) positions, and the low side takes
+    the smaller half of the padding, so an odd total is asymmetric."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class ConvStem(nn.Module):
+    """Conv encoder for pixel observations (..., H, W, C), uint8 (scaled by
+    1/255) or float: convs `conv_i` with 'SAME' padding and relu, then the
+    NHWC-flattened features through `dense` and relu (flax's `Conv_i` and
+    `Dense_0`). Each conv pads explicitly with XLA's pads, which
+    `Conv2d(padding=...)` cannot express when they are asymmetric (84 x 84:
+    (2, 2), then (1, 2), then (1, 1))."""
+
+    def __init__(self, obs_shape: Sequence[int], features: Sequence[int] = (32, 64, 64),
+                 kernels: Sequence[int] = (8, 4, 3), strides: Sequence[int] = (4, 2, 1),
+                 out_dim: int = 256, generator: torch.Generator | None = None):
+        super().__init__()
+        h, w, c = obs_shape
+        self.pads, self.strides = [], list(strides)
+        for i, (f, k, s) in enumerate(zip(features, kernels, strides)):
+            conv = nn.Conv2d(c, f, k, stride=s)
+            lecun_normal_(conv.weight, generator)
+            nn.init.zeros_(conv.bias)
+            self.add_module(f"conv_{i}", conv)
+            (hl, hh), (wl, wh) = same_pads(h, k, s), same_pads(w, k, s)
+            self.pads.append((wl, wh, hl, hh))  # F.pad's order: last axis first
+            h, w, c = -(-h // s), -(-w // s), f
+        self.num_convs = len(self.pads)
+        self.dense = nn.Linear(h * w * c, out_dim)
+        lecun_normal_(self.dense.weight, generator)
+        nn.init.zeros_(self.dense.bias)
+        self.out_dim = out_dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-3]
+        x = x.reshape(-1, *x.shape[-3:])
+        x = x.to(torch.float32) / 255.0 if x.dtype == torch.uint8 else x.to(torch.float32)
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        for i in range(self.num_convs):
+            conv = getattr(self, f"conv_{i}")
+            x = torch.relu(F.conv2d(F.pad(x, self.pads[i]), conv.weight, conv.bias,
+                                    self.strides[i]))
+        x = x.permute(0, 2, 3, 1).reshape(*lead, -1)  # flattened in NHWC order, as flax
+        return torch.relu(self.dense(x))
 
 
 class LSTMCell(nn.Module):

@@ -1,7 +1,10 @@
-"""DDPG actor and critic networks (port of surreal_tpu/models/ddpg_nets.py,
-vector observations): a tanh-squashed deterministic actor and a critic over
-[obs, action], each a relu MLP torso with LayerNorm after its first layer
-and a small-uniform last layer."""
+"""DDPG actor and critic networks (port of surreal_tpu/models/ddpg_nets.py):
+a tanh-squashed deterministic actor and a critic over [obs, action], each a
+relu MLP torso with LayerNorm after its first layer and a small-uniform
+last layer. With `pixel_obs` each net has its own conv stem in front
+(`obs_dim` is then the frame stack's shape (H, W, C)); the actor's
+`detach_stem` (shared-encoder mode) stops the actor loss's gradient at its
+stem, which moves only by copies of the critic's (`algos.ddpg.sync_encoder`)."""
 
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from surreal_tpu_torch.models.blocks import MLP
+from surreal_tpu_torch.models.blocks import MLP, ConvStem
 
 
 def _head(in_dim: int, out_dim: int, generator: torch.Generator | None) -> nn.Linear:
@@ -25,35 +28,45 @@ def _head(in_dim: int, out_dim: int, generator: torch.Generator | None) -> nn.Li
     return layer
 
 
-def _refuse_pixels(pixel_obs: bool) -> None:
-    if pixel_obs:
-        raise NotImplementedError(
-            "pixel observations (the conv stem) are not ported yet (ROADMAP.md, Queue A)")
+def _stem(obs_dim, pixel_obs: bool, generator: torch.Generator | None):
+    """(the conv stem or None, the torso's input size)."""
+    if not pixel_obs:
+        return None, obs_dim
+    stem = ConvStem(obs_dim, generator=generator)
+    return stem, stem.out_dim
 
 
 class DDPGActor(nn.Module):
-    def __init__(self, obs_dim: int, action_dim: int, hidden: Sequence[int] = (300, 200),
-                 layer_norm: bool = True, pixel_obs: bool = False,
+    def __init__(self, obs_dim: int | Sequence[int], action_dim: int,
+                 hidden: Sequence[int] = (300, 200), layer_norm: bool = True,
+                 pixel_obs: bool = False, detach_stem: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
-        _refuse_pixels(pixel_obs)
-        self.torso = MLP(obs_dim, hidden, "relu", layer_norm, generator)
+        self.stem, in_dim = _stem(obs_dim, pixel_obs, generator)
+        self.detach_stem = detach_stem
+        self.torso = MLP(in_dim, hidden, "relu", layer_norm, generator)
         self.head = _head(self.torso.out_dim, action_dim, generator)
 
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
-        """obs (..., D) -> action (..., A) in (-1, 1)."""
-        return torch.tanh(self.head(self.torso(obs)))
+        """obs (..., D) or (..., H, W, C) -> action (..., A) in (-1, 1)."""
+        x = obs
+        if self.stem is not None:
+            x = self.stem(obs)
+            if self.detach_stem:
+                x = x.detach()
+        return torch.tanh(self.head(self.torso(x)))
 
 
 class DDPGCritic(nn.Module):
-    def __init__(self, obs_dim: int, action_dim: int, hidden: Sequence[int] = (400, 300),
-                 layer_norm: bool = True, pixel_obs: bool = False,
-                 generator: torch.Generator | None = None):
+    def __init__(self, obs_dim: int | Sequence[int], action_dim: int,
+                 hidden: Sequence[int] = (400, 300), layer_norm: bool = True,
+                 pixel_obs: bool = False, generator: torch.Generator | None = None):
         super().__init__()
-        _refuse_pixels(pixel_obs)
-        self.torso = MLP(obs_dim + action_dim, hidden, "relu", layer_norm, generator)
+        self.stem, in_dim = _stem(obs_dim, pixel_obs, generator)
+        self.torso = MLP(in_dim + action_dim, hidden, "relu", layer_norm, generator)
         self.head = _head(self.torso.out_dim, 1, generator)
 
     def forward(self, obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
-        """(obs (..., D), action (..., A)) -> Q (...)."""
-        return self.head(self.torso(torch.cat([obs, action], dim=-1)))[..., 0]
+        """(obs (..., D) or (..., H, W, C), action (..., A)) -> Q (...)."""
+        x = obs if self.stem is None else self.stem(obs)
+        return self.head(self.torso(torch.cat([x, action], dim=-1)))[..., 0]

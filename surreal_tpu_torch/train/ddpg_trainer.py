@@ -1,8 +1,12 @@
 """Single-device DDPG trainer (port of surreal_tpu/train/ddpg_trainer.py
-without the mesh and pixel paths): builds the env batch, the four networks
-and the replay ring on the device, then runs train steps."""
+without the mesh path): builds the env batch, pixel-wrapped or not, the
+four networks and the replay ring on the device, then runs train steps.
+Pixel frames are stored raw, uint8, in the ring and scaled inside the conv
+stems; the Z-filter stays off for them."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -11,6 +15,7 @@ from surreal_tpu_torch.data.replay import ReplayState
 from surreal_tpu_torch.device import resolve as resolve_device
 from surreal_tpu_torch.envs import base as env_base
 from surreal_tpu_torch.envs import make_env
+from surreal_tpu_torch.envs.wrappers import PixelWrapper, pixel_flatten_obs
 from surreal_tpu_torch.models.ddpg_nets import DDPGActor, DDPGCritic
 from surreal_tpu_torch.models.z_filter import ZFilterState
 from surreal_tpu_torch.train.evaluator import evaluate_policy
@@ -30,26 +35,45 @@ class DDPGTrainer(Trainer):
     def __init__(self, env_name: str, cfg: ddpg.DDPGConfig | None = None, num_envs: int = 128,
                  seed: int = 0, actor_hidden=(300, 200), critic_hidden=(400, 300),
                  device: str | torch.device | None = None, pixel_obs: bool = False,
-                 env_kwargs: dict | None = None, debug_checks: bool = False, mesh=None):
-        if pixel_obs or mesh is not None:
-            raise NotImplementedError(
-                "pixel_obs and mesh are not ported yet (ROADMAP.md, Queue A)")
-        self.cfg = cfg or ddpg.DDPGConfig()
+                 pixel_kwargs: dict | None = None, env_kwargs: dict | None = None,
+                 debug_checks: bool = False, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("mesh is not ported yet (ROADMAP.md, Queue A)")
+        cfg = cfg or ddpg.DDPGConfig()
         self.device = resolve_device(device)
         self.env = make_env(env_name, device=self.device, **(env_kwargs or {}))
-        self._flatten = env_base.flatten_obs
+        if pixel_obs:
+            self.env = PixelWrapper(self.env, **(pixel_kwargs or {}))
+            self._flatten = pixel_flatten_obs
+            cfg = dataclasses.replace(cfg, use_zfilter=False)
+            pix = self.env.obs_spec()["pixel"]
+            net_in, obs_dim = pix.shape, 1  # obs_dim: the Z-filter's placeholder
+            layout = {"obs_shape": pix.shape, "obs_dtype": pix.dtype}
+        else:
+            self._flatten = env_base.flatten_obs
+            net_in = obs_dim = env_base.obs_flat_dim(self.env)
+            layout = {}
+        if cfg.shared_encoder and not pixel_obs:
+            raise ValueError("shared_encoder is a pixel-mode knob (conv stem)")
+        if cfg.aug_shift > 0 and not pixel_obs:
+            raise ValueError("aug_shift is a pixel-mode knob (image shift)")
+        self.cfg = cfg
         self.num_envs = num_envs
         # Parameters are drawn on the CPU, so a seed gives the same networks
         # on every device; the run's own randomness comes from `generator`.
         init_gen = torch.Generator().manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
-        obs_dim = env_base.obs_flat_dim(self.env)
         act_dim = self.env.action_dim
-        actor = DDPGActor(obs_dim, act_dim, tuple(actor_hidden), generator=init_gen)
-        critic = DDPGCritic(obs_dim, act_dim, tuple(critic_hidden), generator=init_gen)
+        actor = DDPGActor(net_in, act_dim, tuple(actor_hidden), pixel_obs=pixel_obs,
+                          detach_stem=cfg.shared_encoder, generator=init_gen)
+        critic = DDPGCritic(net_in, act_dim, tuple(critic_hidden), pixel_obs=pixel_obs,
+                            generator=init_gen)
+        if cfg.shared_encoder:  # one stem from step 0, the targets' too
+            ddpg.sync_encoder(actor, critic)
         self.state = ddpg.init_state(self.cfg, actor.to(self.device), critic.to(self.device),
                                      obs_dim)
-        self.replay = ddpg.init_replay(self.cfg, num_envs, obs_dim, act_dim, self.device)
+        self.replay = ddpg.init_replay(self.cfg, num_envs, obs_dim, act_dim, self.device,
+                                       **layout)
         self.sigma = torch.as_tensor(ddpg.noise_ladder(self.cfg, num_envs), device=self.device)
         self.env_state, ts0 = self.env.reset(num_envs, self.generator)
         self.obs = self._flatten(ts0.obs)
@@ -64,7 +88,7 @@ class DDPGTrainer(Trainer):
 
     # ---- full-state checkpointing: the four networks and both Adam states,
     # the replay ring's contents and count, the exploration noise, the env
-    # batch, the generator and the counters ----
+    # batch (and its frame stacks), the generator and the counters ----
     @property
     def full_state(self) -> dict:
         s = self.state

@@ -27,7 +27,7 @@ class Trainer:
     default_log_every = 10
     device: torch.device
     generator: torch.Generator
-    env_state: EnvState
+    env_state: EnvState  # or a wrapper's state with the same to_dict / from_dict
     obs: torch.Tensor
     ep_ret: torch.Tensor
     global_iter: int  # lifetime iteration count
@@ -48,14 +48,15 @@ class Trainer:
         raise NotImplementedError
 
     def _run_state(self) -> dict:
-        """The full state's share of the env batch, the RNG and the counter."""
-        s = self.env_state
-        return {"env_state": {"q": s.q, "qd": s.qd, "t": s.t}, "obs": self.obs,
+        """The full state's share of the env batch (with pixels, the frame
+        stack too), the RNG and the counter."""
+        return {"env_state": self.env_state.to_dict(), "obs": self.obs,
                 "ep_ret": self.ep_ret, "generator": self.generator.get_state(),
                 "global_iter": self.global_iter}
 
     def _load_run_state(self, fs: dict) -> None:
-        self.env_state = EnvState(**fs["env_state"])
+        # the trainer's own env state (from its reset) says which kind to rebuild
+        self.env_state = type(self.env_state).from_dict(fs["env_state"])
         self.obs = fs["obs"]
         self.ep_ret = fs["ep_ret"]
         self.generator.set_state(fs["generator"].cpu())  # a generator's state lives on the host

@@ -1,8 +1,11 @@
 """Single-device PPO trainer (port of surreal_tpu/train/ppo_trainer.py
-without the mesh, pixel and overlap paths): builds the env batch and the
-network, feed-forward or recurrent, then runs train steps."""
+without the mesh and overlap paths): builds the env batch, pixel-wrapped
+or not, and the network, feed-forward or recurrent, then runs train
+steps."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -10,6 +13,7 @@ from surreal_tpu_torch.algos import ppo, ppo_lstm
 from surreal_tpu_torch.device import resolve as resolve_device
 from surreal_tpu_torch.envs import base as env_base
 from surreal_tpu_torch.envs import make_env
+from surreal_tpu_torch.envs.wrappers import PixelWrapper, pixel_flatten_obs
 from surreal_tpu_torch.models.actor_critic import PPOActorCritic
 from surreal_tpu_torch.models.distributions import DiagGauss
 from surreal_tpu_torch.models.z_filter import ZFilterState
@@ -25,25 +29,32 @@ from surreal_tpu_torch.train.loop import (
 class PPOTrainer(Trainer):
     def __init__(self, env_name: str, cfg: ppo.PPOConfig | None = None, num_envs: int = 256,
                  seed: int = 0, hidden=(64, 64), device: str | torch.device | None = None,
-                 pixel_obs: bool = False, use_lstm: bool = False, lstm_size: int = 128,
-                 env_kwargs: dict | None = None, debug_checks: bool = False, mesh=None,
-                 overlap: bool = False):
-        if pixel_obs or mesh is not None or overlap:
+                 pixel_obs: bool = False, pixel_kwargs: dict | None = None,
+                 use_lstm: bool = False, lstm_size: int = 128, env_kwargs: dict | None = None,
+                 debug_checks: bool = False, mesh=None, overlap: bool = False):
+        if mesh is not None or overlap:
             raise NotImplementedError(
-                "pixel_obs, mesh and overlap are not ported yet (ROADMAP.md, Queue A)")
-        self.cfg = cfg or ppo.PPOConfig()
+                "mesh and overlap are not ported yet (ROADMAP.md, Queue A)")
+        cfg = cfg or ppo.PPOConfig()
         self.device = resolve_device(device)
         self.env = make_env(env_name, device=self.device, **(env_kwargs or {}))
-        self._flatten = env_base.flatten_obs
+        if pixel_obs:
+            self.env = PixelWrapper(self.env, **(pixel_kwargs or {}))
+            self._flatten = pixel_flatten_obs
+            cfg = dataclasses.replace(cfg, use_zfilter=False)  # the stem scales uint8
+            net_in, obs_dim = self.env.obs_spec()["pixel"].shape, 1  # the Z-filter's placeholder
+        else:
+            self._flatten = env_base.flatten_obs
+            obs_dim = net_in = env_base.obs_flat_dim(self.env)
+        self.cfg = cfg
         self.num_envs = num_envs
         # Parameters are drawn on the CPU, so a seed gives the same network
         # on every device; the run's own randomness comes from `generator`.
         init_gen = torch.Generator().manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
-        obs_dim = env_base.obs_flat_dim(self.env)
         self.use_lstm = use_lstm
-        net = PPOActorCritic(obs_dim, self.env.action_dim, hidden=tuple(hidden),
-                             use_lstm=use_lstm, lstm_size=lstm_size,
+        net = PPOActorCritic(net_in, self.env.action_dim, hidden=tuple(hidden),
+                             pixel_obs=pixel_obs, use_lstm=use_lstm, lstm_size=lstm_size,
                              generator=init_gen).to(self.device)
         self.env_state, ts0 = self.env.reset(num_envs, self.generator)
         self.obs = self._flatten(ts0.obs)
@@ -58,8 +69,8 @@ class PPOTrainer(Trainer):
         return self.cfg.horizon * self.num_envs
 
     # ---- full-state checkpointing: the network, Adam, the Z-filter, the
-    # KL/LR adaptation, the actors' snapshot, the env batch, the LSTM carry,
-    # the generator and the counters all survive ----
+    # KL/LR adaptation, the actors' snapshot, the env batch (and its frame
+    # stacks), the LSTM carry, the generator and the counters all survive ----
     @property
     def full_state(self) -> dict:
         s = self.state

@@ -2,8 +2,9 @@
 onto the target's device and structure) and the trainers' full state: a
 run saved, loaded into a fresh trainer built with another seed and
 continued equals the uninterrupted run bit for bit, for PPO with the fused
-loss, LSTM-PPO with a stale actor snapshot and DDPG past its replay
-warm-up."""
+loss, LSTM-PPO with a stale actor snapshot, DDPG past its replay warm-up,
+and pixel PPO and pixel DDPG (shared encoder, random shift), whose frame
+stacks are part of the state."""
 
 import json
 import os
@@ -89,11 +90,30 @@ def _ddpg(seed):
                        critic_hidden=(16, 16), device="cpu")
 
 
+PIXELS = {"height": 48, "width": 48, "action_repeat": 2}
+
+
+def _pixel_ppo(seed):
+    return PPOTrainer("cartpole-balance", PPOConfig(horizon=8, epochs=2, num_minibatches=2),
+                      num_envs=4, seed=seed, hidden=(16, 16), device="cpu", pixel_obs=True,
+                      pixel_kwargs=PIXELS)
+
+
+def _pixel_ddpg(seed):
+    cfg = DDPGConfig(rollout_steps=4, updates_per_iteration=2, batch_size=8, min_replay=16,
+                     replay_capacity=64, shared_encoder=True, aug_shift=2)
+    return DDPGTrainer("cartpole-balance", cfg, num_envs=4, seed=seed, actor_hidden=(16, 16),
+                       critic_hidden=(16, 16), device="cpu", pixel_obs=True,
+                       pixel_kwargs=PIXELS)
+
+
 MAKERS = {
     "ppo_fused": lambda seed: _ppo(seed),
     "lstm_ppo_publish_every_2": lambda seed: _ppo(seed, use_lstm=True, lstm_size=16,
                                                   publish_every=2),
     "ddpg": _ddpg,
+    "pixel_ppo": _pixel_ppo,
+    "pixel_ddpg": _pixel_ddpg,
 }
 
 
@@ -141,3 +161,6 @@ def test_resume_is_bitwise_the_uninterrupted_run(tmp_path, kind):
         assert straight.state.update_step == 8 and straight.replay.total == 16
     if kind.startswith("lstm"):
         assert straight.state.psync.version == 4
+    if kind.startswith("pixel"):
+        assert straight.full_state["env_state"]["stack"].dtype == torch.uint8
+        assert straight.full_state["env_state"]["stack"].shape == (4, 48, 48, 3)

@@ -3,7 +3,8 @@ held to the expectations of the reference's tests/test_checkpoint_cli.py
 on its tiny cartpole-balance run (8 envs, horizon 8, (16, 16), one
 minibatch): config.json, checkpoints at the reference's steps, kill and
 resume, eval from the latest and the best checkpoint, `envs`, the knobs
-that are not ported yet, and one DDPG run.
+that are not ported yet, one DDPG run, and a pixel run with its eval
+video.
 
 A CPU cartpole control step takes ~13 ms, so a 1,000-step evaluation
 would take most of a minute: these tests register cartpole-balance with
@@ -132,8 +133,6 @@ def test_envs_lists_the_registry(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--env.pixel_obs", "true"], "A12"),
-    (["--session.video", "true"], "A12"),
     (["--learner.compute_dtype", "bfloat16"], "A13"),
     (["--learner.overlap", "true"], "A17"),
     (["--session.mesh.data", "2"], "A15"),
@@ -152,6 +151,27 @@ def test_ddpg_run(tmp_path, capsys):
     assert _latest_steps(tmp_path / "d") == [32, 64, 96]
     capsys.readouterr()
     assert main(["eval", "--experiment", str(tmp_path / "d"), "--episodes", "2",
+                 "--device", "cpu"]) == 0
+    assert math.isfinite(json.loads(capsys.readouterr().out.splitlines()[-1])["return_mean"])
+
+
+def test_pixel_run_with_video(tmp_path, capsys):
+    """--env.pixel_obs true --session.video true: one iteration on 48 x 48
+    frames (action repeat 2, which the 50-step episodes admit), the
+    evaluation, one GIF of video_steps frames, and eval --best."""
+    from PIL import Image
+
+    _train(tmp_path, "px", 64, "--env.pixel_obs", "true", "--env.pixel.action_repeat", "2",
+           "--env.pixel.height", "48", "--env.pixel.width", "48", "--session.video", "true",
+           "--session.video_steps", "6")
+    exp = tmp_path / "px"
+    with open(exp / "config.json") as f:
+        saved = json.load(f)
+    assert saved["env"]["pixel_obs"] is True and saved["env"]["pixel"]["action_repeat"] == 2
+    gif = Image.open(exp / "videos" / "steps_64.gif")
+    assert gif.n_frames == 6 and gif.size == (168, 168)
+    capsys.readouterr()
+    assert main(["eval", "--experiment", str(exp), "--episodes", "2", "--best",
                  "--device", "cpu"]) == 0
     assert math.isfinite(json.loads(capsys.readouterr().out.splitlines()[-1])["return_mean"])
 

@@ -1,6 +1,7 @@
 """The port's import rule: nothing under surreal_tpu_torch/, nor
 chip_smoke.py, imports jax, jaxlib, flax, optax, orbax, the surreal_tpu
-package, tensorboard or tensorflow (the card's machine has neither), and
+package, tensorboard, tensorflow or PIL (the card's machine has none of
+the last three: the port writes its event files and GIFs itself), and
 every module of the port imports on a machine without a card."""
 
 import ast
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "surreal_tpu", "tensorboard",
-             "tensorflow"}
+             "tensorflow", "PIL"}
 FILES = sorted((ROOT / "surreal_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

@@ -225,7 +225,7 @@ def test_loss_kernels_match_plain(cuda_device, shared_log_std_old, A):
 
 @pytest.mark.parametrize("A", ACTIONS)
 @pytest.mark.parametrize("log_std_rows", [False, True], ids=["log_std_A", "log_std_NA"])
-@pytest.mark.parametrize("N", [256, 4096, 4100, 16384])
+@pytest.mark.parametrize("N", [256, 2048, 4096, 4100, 16384])  # 2048: the pixel PPO minibatch
 def test_loss_kernels_match_plain_at_sizes(cuda_device, N, log_std_rows, A):
     """A ragged tail (4100) and a row loop (4100, 16384 > the cluster's 4096
     threads), both log_std forms, and a cotangent g_loss other than 1, at

@@ -124,14 +124,22 @@ def test_device_resolution_has_no_cpu_fallback():
 
 
 def test_pixel_and_lstm_forms_raise():
-    """The pixel forms are refused; the LSTM form, once refused, is built."""
+    """The pixel forms, once refused, are built: a conv stem in front (one,
+    shared, in the actor-critic; one per DDPG net); so is the LSTM form.
+    (tests/test_torch_pixels.py holds them against the reference.)"""
+    from surreal_tpu_torch.models.blocks import ConvStem
     from surreal_tpu_torch.models.ddpg_nets import DDPGActor, DDPGCritic
 
-    for build in (lambda: PPOActorCritic(OBS_DIM, ACT_DIM, HIDDEN, pixel_obs=True),
-                  lambda: DDPGActor(OBS_DIM, ACT_DIM, pixel_obs=True),
-                  lambda: DDPGCritic(OBS_DIM, ACT_DIM, pixel_obs=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build()
+    frames = torch.zeros(2, 48, 64, 3, dtype=torch.uint8)
+    ac = PPOActorCritic((48, 64, 3), ACT_DIM, HIDDEN, pixel_obs=True)
+    mean, _, value = ac(frames)
+    assert mean.shape == (2, ACT_DIM) and value.shape == (2,)
+    actor = DDPGActor((48, 64, 3), ACT_DIM, pixel_obs=True)
+    critic = DDPGCritic((48, 64, 3), ACT_DIM, pixel_obs=True)
+    assert actor(frames).shape == (2, ACT_DIM)
+    assert critic(frames, torch.zeros(2, ACT_DIM)).shape == (2,)
+    for net in (ac, actor, critic):
+        assert sum(isinstance(m, ConvStem) for m in net.modules()) == 1
     net = PPOActorCritic(OBS_DIM, ACT_DIM, HIDDEN, use_lstm=True, lstm_size=8)
     c, h = net.initial_carry((3,))
     assert c.shape == h.shape == (3, 8) and PPOActorCritic(OBS_DIM, ACT_DIM).initial_carry() is None

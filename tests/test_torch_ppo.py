@@ -241,7 +241,7 @@ def test_trainer_evaluate_and_refused_options():
         assert out["episodes"] == 3 and all(np.isfinite(v) for v in out.values())
     policy, zf = tr.deterministic_policy()
     assert policy(tr.obs).shape == (4, 6) and zf is tr.state.zfilter
-    for kw in ({"pixel_obs": True}, {"mesh": object()}, {"overlap": True}):
+    for kw in ({"mesh": object()}, {"overlap": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             PPOTrainer("cheetah-run", device="cpu", **kw)
 
