@@ -5,7 +5,7 @@
     python3 chip_smoke.py --loss-sweep
     python3 chip_smoke.py --gae-timing [ROOT]
     python3 chip_smoke.py --gae-sweep
-    python3 chip_smoke.py --learn [DIR] [CLI FLAGS]
+    python3 chip_smoke.py --learn [DIR] [cheetah-run] [CLI FLAGS]
 
 Phases, each of which exits non-zero on failure:
   1. prints the card (nvidia-smi name, power limit) and the torch version;
@@ -75,8 +75,11 @@ Phases, each of which exits non-zero on failure:
      `eval --best` over 16 episodes; the DDPG cell of phase 7 (its ring of
      999,936 transitions) saved and restored into a fresh trainer, every
      tensor equal, and equal again after one more iteration of both; one
-     cartpole iteration with debug_checks beside an unchecked one; and
-     `bench` with BENCH_WARMUP_ITERS=1 BENCH_ITERS=2;
+     cartpole iteration with debug_checks beside an unchecked one;
+     `bench` with BENCH_WARMUP_ITERS=1 BENCH_ITERS=2; and `train ppo` with
+     `--learner.compute_dtype bfloat16 --learner.overlap true` for 2
+     iterations (32 + 32 loss launches each, from the counters) and `eval`
+     of its checkpoint;
  13. the rasteriser at 128 envs and 84 x 84 on cheetah (a floating root),
      ball_in_cup, manipulator_bring_ball and cartpole (a stick figure):
      the card's frames against the CPU's from the same states (at most 1
@@ -89,7 +92,9 @@ Phases, each of which exits non-zero on failure:
      shares timed alone) and update; checks from the counters, set to 0
      before it, that each iteration launched each loss kernel 32 times and
      GAE never, then one update on identical inputs on the card and the
-     CPU;
+     CPU, then one whole update of the rollout's trajectory in float32 and
+     in bfloat16, in the turns f32, bf16, bf16, f32, each timed, then one
+     overlapped step on that trajectory (time and peak memory);
  15. DDPG from pixels on ball_in_cup-catch at the evidence's configuration
      (results/bic_pixel_ddpg_aug_r5.txt: 128 envs, action repeat 2, a ring
      of 99,968 uint8 frame stacks, 2,116,122,624 bytes, min_replay 5,000,
@@ -101,7 +106,22 @@ Phases, each of which exits non-zero on failure:
      true --session.video true` at the recipe for two iterations (the loss
      32 + 32 launches an iteration from the counters), the eval video read
      back to its frames, and `eval --best`;
- 17. the profiler checks of the PPO slice: times one more iteration split
+ 17. PPO on cheetah-run at bench.py's configuration with bfloat16 networks
+     (parameters float32) and the fused loss, 1 warm-up and 3 timed
+     iterations: the launch counters as in phase 5, and the loss kernels
+     held against their plain versions on the path's own first minibatch
+     (the float32 outputs of the bfloat16 heads);
+ 18. bfloat16 updates on the card against the CPU from the same state and
+     draws: a small PPO update with the fused loss, an LSTM-PPO update and
+     a block of 3 pixel DDPG updates (shared encoder, shifts injected), each
+     parameter within the Adam steps' reach and all but a fifth within
+     1e-5 (tests/test_torch_bf16_updates.py's bars);
+ 19. the overlapped PPO step at bench.py's configuration: the priming
+     rollout and 3 iterations, each checked to update on the trajectory
+     the previous call returned and to launch each loss kernel 32 times
+     and GAE never, each timed beside one iteration of phase 5's fused
+     step, in turns;
+ 20. the profiler checks of the PPO slice: times one more iteration split
      into rollout and update, profiles another for the device's idle share,
      and profiles one minibatch step of the update for its loss kernels (2:
      one forward, one backward), a forward and a backward of
@@ -109,20 +129,21 @@ Phases, each of which exits non-zero on failure:
      device kernel each). torch.profiler stays attached to the process once
      used and slows every later launch, so it comes last and nothing is
      timed after it;
- 18. profiles the DDPG cell (one rollout, one update block), the recurrent
+ 21. profiles the DDPG cell (one rollout, one update block), the recurrent
      PPO cell (a rollout of 16 steps, one epoch of 8 minibatch steps) and
      the finger-spin cell (a rollout of 4 steps, one epoch of 4 minibatch
      steps) for their device kernels and device busy time, held against the
      unprofiled times of the same parts from phases 7, 8 and 11;
- 19. profiles one render call per task of phase 13 and the pixel PPO cell
-     (a rollout of 2 decision steps, one epoch of 8 minibatch steps): device
-     kernels per decision step, the render's share of the rollout's device
-     time, the idle shares.
-Phases 6 to 9, 11, 12, 14 to 16, 18 and 19 print one JSON object each
-(three in phase 18), phases 10 and 13 one per task. The whole run's time
+ 22. profiles one render call per task of phase 13 and the pixel PPO cell
+     (a rollout of 2 decision steps, one epoch of 8 minibatch steps, the
+     epoch in float32 and in bfloat16): device kernels per decision step,
+     the render's share of the rollout's device time, the idle shares, each
+     epoch's kernels with the most device time.
+Phases 6 to 9, 11, 12, 14 to 19, 21 and 22 print one JSON object each
+(three in phase 21), phases 10 and 13 one per task. The whole run's time
 follows; the line before the card's is a JSON object with one entry per
 kernel (GAE, on no trainer path since the reference's default is the XLA
-scan, is still held by phases 3, 4 and 17); the last line is {"ok": true,
+scan, is still held by phases 3, 4 and 20); the last line is {"ok": true,
 "device": {...}}.
 
 With --loss-timing, only phase 1 and the autograd timing of phase 3 run,
@@ -142,9 +163,16 @@ and 2 run, then cartpole-balance PPO is trained through the CLI to its
 recipe's budget of 4,000,000 env steps with the fused loss (~15 min),
 results under DIR (default: a temporary directory), and the eval curve and
 a final 32-episode evaluation are printed; it fails below a return of 900.
-CLI FLAGS after DIR go to the train command after the recipe's, for runs
-that diagnose a score (--session.seed, --learner.fused_loss false,
---session.log_every_iterations).
+With `--learn DIR cheetah-run`, the cheetah-run PPO recipe (15,000,000 env
+steps, 256 envs, the default unfused loss) is trained in bfloat16 and in
+float32 as two processes at once on the card, each under DIR/<dtype> with
+its output in DIR/<dtype>.log (~35 min); it fails if either scores below
+700, which every evidence run passes (bfloat16 816.9; float32 784.5, 745.6,
+791.8 over seeds 0-2). CLI FLAGS after DIR (and the task) go to the train
+command after the recipe's, for runs that diagnose a score
+(--session.seed, --learner.fused_loss false,
+--session.log_every_iterations; with --learner.compute_dtype, cheetah-run
+runs that one dtype alone).
 """
 
 from __future__ import annotations
@@ -372,12 +400,14 @@ def gae_case(gae_kernel, returns, rng, T, B, dev) -> dict:
                 bytes=moved, call_ms=call_ms, plain_call_ms=plain_call_ms, shape=[T, B])
 
 
-def loss_cases(plk, rng, N, A, dev) -> tuple[dict, dict, tuple]:
+def loss_cases(plk, rng, N, A, dev, batch=None, coefs=(0.2, 0.5, 0.0)
+               ) -> tuple[dict, dict, tuple]:
     """The fused loss's forward and backward kernels at N rows and A action
     dims (log_std (A,) shared by all rows, log_std_old (N, A), a cotangent
-    of 1), each held against its plain version and timed; and the batch."""
-    batch = loss_batch(rng, N, A, dev)
-    coefs = (0.2, 0.5, 0.0)
+    of 1), each held against its plain version and timed; and the batch.
+    `batch` (a path's own minibatch, as fused_clip_loss took it) replaces
+    the random one."""
+    batch = loss_batch(rng, N, A, dev) if batch is None else batch
     g = torch.ones((), device=dev)
     k_fwd, p_fwd = plk.loss_fwd(*batch, *coefs), plk.loss_fwd_plain(*batch, *coefs)
     k_bwd, p_bwd = plk.loss_bwd(*batch, g, *coefs), plk.loss_bwd_plain(*batch, g, *coefs)
@@ -651,17 +681,24 @@ def breakdown(trainer):
         fail(f"one minibatch step ran {len(loss_names)} loss kernels, not 2")
 
 
-def profiled(fn) -> tuple[int, float]:
+def profiled(fn, top: int = 0) -> tuple:
     """(device kernels, their summed device seconds) of one call of `fn`
-    under torch.profiler."""
+    under torch.profiler; with `top`, also the `top` kernel names with the
+    most device ms, and their ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return len(spans), sum(spans) * 1e-6
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [e.time_range.elapsed_us() for e in events]
+    if not top:
+        return len(spans), sum(spans) * 1e-6
+    by_name = {}
+    for e, us in zip(events, spans):
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + us * 1e-3
+    return len(spans), sum(spans) * 1e-6, dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
 
 
 def new_cells_profile(ddpg_t, ddpg_times, lstm_t, lstm_times):
@@ -1279,7 +1316,7 @@ def unequal_leaves(a, b) -> list[str]:
     return bad
 
 
-def phase_cli(dev, ddpg_t) -> dict:
+def phase_cli(dev, ddpg_t) -> tuple[dict, dict]:
     """The session layer and the CLI on the card: `envs`; cartpole-balance
     PPO trained through the CLI at the recipe's full width with the fused
     loss for 3 iterations, a checkpoint each, killed and resumed to 5; the
@@ -1287,7 +1324,9 @@ def phase_cli(dev, ddpg_t) -> dict:
     DDPG cell's full state (its ring of 999,936 transitions) saved and
     restored into a fresh trainer, and one more iteration of both; one
     checked iteration (debug_checks) beside an unchecked one; and `bench`.
-    Returns the loss kernels' launches on the CLI's training runs."""
+    and a short run with bfloat16 networks and the overlapped step,
+    evaluated. Returns the kernels' launches on the CLI's training runs:
+    the float32 one's, the bfloat16 overlapped one's."""
     from surreal_tpu_torch.cli.configs import generate_configs, to_algo_config
     from surreal_tpu_torch.cli.main import _build_trainer, _parse_overrides
     from surreal_tpu_torch.config import Config
@@ -1375,6 +1414,30 @@ def phase_cli(dev, ddpg_t) -> dict:
                    best=ck.best_info)
         if not np.isfinite(ev["return_mean"]) or ev["episodes"] != 16:
             fail(f"eval --best printed {ev}")
+
+        # bfloat16 networks and the overlapped step through the CLI: 2
+        # iterations after the priming rollout, then its checkpoint evaluated
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        cli_stdout(["train", "ppo", *CARTPOLE_FLAGS, "--learner.compute_dtype", "bfloat16",
+                    "--learner.overlap", "true", "--session.total_env_steps",
+                    str(2 * CARTPOLE_ITER), "--session.eval_episodes", "4",
+                    "--session.results_dir", root, "--session.experiment_name", "bf16_overlap",
+                    "--device", str(dev)])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bf16_launches = {n: k.launches for n, k in kernels.items()}
+        ev = json.loads(cli_stdout(["eval", "--experiment", os.path.join(root, "bf16_overlap"),
+                                    "--episodes", "4", "--device", str(dev)]
+                                   ).strip().splitlines()[-1])
+        out.update(bf16_overlap_train_2_iterations_s=t1 - t0,
+                   bf16_overlap_launches=bf16_launches, bf16_overlap_eval=ev)
+        want = {"gae": 0, "ppo_loss_fwd": 32 * 2, "ppo_loss_bwd": 32 * 2}
+        if bf16_launches != want:
+            fail(f"the CLI's bf16 overlapped run launched {bf16_launches}, not {want}")
+        if not np.isfinite(ev["return_mean"]):
+            fail(f"eval of the bf16 overlapped run printed {ev}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1439,7 +1502,7 @@ def phase_cli(dev, ddpg_t) -> dict:
                 os.environ[k] = v
     out["phase_s"] = time.perf_counter() - t_phase
     print(json.dumps(out))
-    return launches
+    return launches, bf16_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1633,8 +1696,55 @@ def phase_pixel_ppo(dev):
         results[d] = (params_by_name({"net": net}), {k: float(x) for k, x in metrics.items()})
     out["update_card_vs_cpu"] = pixel_parity("pixel PPO", results["cpu"], results[dev],
                                              reach=2 * cfg.lr * 1.01)
+    out["update_s_by_compute_dtype"] = pixel_update_dtypes(t, traj)
+    # one overlapped step at the recipe's width: the rollout's trajectory
+    # pending while the next is collected, two uint8 trajectories held
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    t.state, t.env_state, t.obs, t.ep_ret, nxt, m = ppo.train_step_overlapped(
+        cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.ep_ret, traj, t.generator)
+    torch.cuda.synchronize()
+    out.update(overlapped_step_s=time.perf_counter() - t0,
+               overlapped_step_max_memory_allocated=torch.cuda.max_memory_allocated(),
+               overlapped_pending_bytes=nbytes(traj.obs) + nbytes(nxt.obs))
+    check_finite("pixel PPO overlapped step", {k: float(v) for k, v in m.items()})
+    del nxt
     print(json.dumps(out))
     return t, launches, out
+
+
+def dtype_twin(t, name: str):
+    """The pixel trainer's network, parameters and all, computing in the
+    dtype `name`."""
+    from surreal_tpu_torch.models.actor_critic import PPOActorCritic
+
+    net = t.state.net
+    twin = PPOActorCritic(tuple(t.obs.shape[1:]), net.mean_head.out_features,
+                          (net.actor_torso.dense_0.out_features,
+                           net.actor_torso.dense_1.out_features), pixel_obs=True,
+                          compute_dtype=getattr(torch, name)).to(t.device)
+    twin.load_state_dict(net.state_dict())
+    return twin
+
+
+def pixel_update_dtypes(t, traj) -> dict:
+    """One whole update at the recipe's width (4 epochs x 8 minibatch steps
+    of 2,048 frames through the conv stem) from the same trajectory and the
+    same starting network, in float32 and in bfloat16, in the turns f32,
+    bf16, bf16, f32: the seconds of each."""
+    from surreal_tpu_torch.algos import ppo
+
+    times = {"float32": [], "bfloat16": []}
+    for name in ("float32", "bfloat16", "bfloat16", "float32"):
+        st = ppo.init_state(t.cfg, dtype_twin(t, name), 1)
+        gen = torch.Generator(device=t.device).manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = ppo.update(t.cfg, st, traj, gen)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+        check_finite(f"pixel PPO update in {name}", {k: float(v) for k, v in m.items()})
+    return times
 
 
 def phase_pixel_ddpg(dev):
@@ -1797,9 +1907,10 @@ def pixel_profile(t, times, render_cases):
     """Under torch.profiler (after every timing): the device kernels of one
     render call per task, and of the pixel PPO cell's rollout cut to 2 of
     its 128 decision steps and of one epoch of its update (8 of its 32
-    minibatch steps): kernels per decision step, the render's share of the
-    rollout's device time, and the idle shares against the unprofiled
-    times of the same parts."""
+    minibatch steps), in float32 and in bfloat16: kernels per decision
+    step, the render's share of the rollout's device time, the idle shares
+    against the unprofiled times of the same parts, and each epoch's
+    kernels with the most device time."""
     from surreal_tpu_torch.algos import ppo
 
     renders = {}
@@ -1819,7 +1930,13 @@ def pixel_profile(t, times, render_cases):
     n_render, busy_render = profiled(lambda: t.env._frame(q))
     n_roll, busy_roll = profiled(rollout)
     epoch = dataclasses.replace(t.cfg, epochs=1)
-    n_upd, busy_upd = profiled(lambda: ppo.update(epoch, t.state, full, t.generator))
+    n_upd, busy_upd, top_upd = profiled(
+        lambda: ppo.update(epoch, t.state, full, t.generator), top=6)
+    bf16_state = ppo.init_state(epoch, dtype_twin(t, "bfloat16"), 1)
+    ppo.update(epoch, bf16_state, full, t.generator)  # cuDNN's first bf16 calls, unprofiled
+    n_bf16, busy_bf16, top_bf16 = profiled(
+        lambda: ppo.update(epoch, bf16_state, full, t.generator), top=6)
+    bf16_epoch_wall = min(times["update_s_by_compute_dtype"]["bfloat16"]) / t.cfg.epochs
     roll_wall = times["ms_per_decision_step"] * 1e-3 * steps
     epoch_wall = times["update_s"] / t.cfg.epochs
     out = {"phase": "pixel_profile", "render_by_task": renders,
@@ -1833,32 +1950,342 @@ def pixel_profile(t, times, render_cases):
            "unprofiled_s_of_the_same_rollout_steps": roll_wall,
            "unprofiled_s_of_one_epoch": epoch_wall,
            "rollout_idle_share": 1 - busy_roll / roll_wall,
-           "update_idle_share": 1 - busy_upd / epoch_wall}
+           "update_idle_share": 1 - busy_upd / epoch_wall,
+           "epoch_top_kernels_ms": top_upd,
+           "bf16_epoch_kernels": n_bf16, "bf16_epoch_busy_s": busy_bf16,
+           "bf16_unprofiled_s_of_one_epoch": bf16_epoch_wall,
+           "bf16_update_idle_share": 1 - busy_bf16 / bf16_epoch_wall,
+           "bf16_epoch_top_kernels_ms": top_bf16}
     print(json.dumps(out))
     if n_roll == 0 or n_upd == 0 or n_render == 0:
         fail("the profiler saw no device kernel in the pixel PPO cell")
 
 
-def learn(out_dir: str | None, flags: list[str]) -> None:
-    """Trains cartpole-balance PPO through the port's CLI to the recipe's
-    budget (4,000,000 env steps, evals every 15 iterations) with the fused
-    loss, then evaluates the last checkpoint over 32 episodes,
-    deterministically and sampled, as results/cartpole_balance_ppo_r5.txt
-    did. Fails below 900. `flags` go to the train command after the
-    recipe's (a diagnosis run: another seed, the unfused loss, a shorter
-    log interval)."""
+# ---------------------------------------------------------------------------
+# bfloat16 network compute and the overlapped PPO step (phases 17 to 19)
+# ---------------------------------------------------------------------------
+
+# The card's bfloat16 updates against the CPU's from the same state and
+# draws: the bars of tests/test_torch_bf16_updates.py. cuBLAS and cuDNN sum
+# in another order than the CPU, so a bfloat16 rounding can fall the other
+# way; Adam moves an element whose gradient is near 0 by ~lr x sign(g), so
+# after `steps` steps every element is within 2 x steps x lr (x 1.01) and
+# all but BF16_SHARE of them within 1e-5; metrics within 1e-2 relative (or
+# 1e-3 absolute).
+BF16_SHARE, BF16_RTOL_METRIC = 0.2, 1e-2
+
+
+def bf16_hold(label: str, cpu: tuple, card: tuple, reach: float) -> dict:
+    """(params, metrics) of a bfloat16 update on the CPU and on the card ->
+    the comparison's numbers; fails outside the bars above."""
+    (p_c, m_c), (p_g, m_g) = cpu, card
+    errs = torch.cat([(p_c[k] - p_g[k]).abs().ravel() for k in p_c])
+    out = {"params_max_abs_err": errs.max().item(), "reach": reach,
+           "share_beyond_1e-5": (errs > 1e-5).float().mean().item(), "share_tol": BF16_SHARE,
+           "metrics_max_rel_err": max(abs(m_c[k] - m_g[k]) / max(1e-1, abs(m_c[k]))
+                                      for k in m_c)}
+    if not (out["params_max_abs_err"] <= reach and out["share_beyond_1e-5"] <= BF16_SHARE
+            and all(abs(m_c[k] - m_g[k]) <= max(BF16_RTOL_METRIC * abs(m_c[k]), 1e-3)
+                    for k in m_c)):
+        fail(f"{label}: the card's bfloat16 update disagrees with the CPU's: {out}")
+    return out
+
+
+def synthetic_trajectory(T, B, A, obs_dim, rng, lstm_size=0) -> dict:
+    """A rollout chunk on the CPU from `rng`: the old policy's means and
+    log-std with actions drawn from it, values, rewards, a few episode ends
+    (and with `lstm_size` a bfloat16 initial carry), as the CPU tests build
+    it."""
+    from surreal_tpu_torch.models.distributions import DiagGauss
+
+    f = lambda *s: torch.tensor(rng.standard_normal(s), dtype=torch.float32)  # noqa: E731
+    mean, log_std = 0.5 * f(T, B, A), torch.full((T, B, A), -0.5)
+    action = mean + log_std.exp() * f(T, B, A)
+    out = dict(obs=2 * f(T, B, obs_dim), action=action,
+               log_prob=DiagGauss.log_prob(mean, log_std, action), mean=mean, log_std=log_std,
+               value=f(T, B), next_value=f(T, B),
+               reward=torch.tensor(rng.random((T, B)), dtype=torch.float32),
+               discount=torch.tensor(rng.random((T, B)) > 0.03, dtype=torch.float32),
+               done=torch.tensor(rng.random((T, B)) < 0.08))
+    if lstm_size:
+        out["init_carry"] = tuple((0.3 * f(B, lstm_size)).to(torch.bfloat16) for _ in range(2))
+    return out
+
+
+def phase_bf16(dev):
+    """PPO on cheetah-run at bench.py's configuration with bfloat16
+    networks and the fused loss, 1 warm-up and 3 timed iterations; checks
+    from the counters, set to 0 before it, that each iteration launched each
+    loss kernel 32 times and GAE never, and holds the loss kernels against
+    their plain versions on the path's own first minibatch (float32 outputs
+    of the bfloat16 heads, as fused_clip_loss took them)."""
+    from surreal_tpu_torch.algos.ppo import PPOConfig
+    from surreal_tpu_torch.ops import ppo_loss_kernel as plk
+    from surreal_tpu_torch.train import PPOTrainer
+
+    kernels = path_kernels()
+    cfg = PPOConfig(horizon=128, epochs=4, num_minibatches=8, lr=3e-4, fused_loss=True)
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    t = PPOTrainer("cheetah-run", cfg, num_envs=256, hidden=(256, 256), seed=0, device=dev,
+                   compute_dtype=torch.bfloat16)
+    captured = {}
+    fused = plk.fused_clip_loss
+
+    def capture(*args, **kw):  # the first minibatch's inputs, kept aside
+        if not captured:
+            captured.update(batch=tuple(a.detach().clone() for a in args), coefs=(
+                kw["clip_eps"], kw["value_coef"], kw["entropy_coef"]))
+        return fused(*args, **kw)
+
+    plk.fused_clip_loss = capture
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        t.run(1, log_every=1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logs = t.run(3, log_every=1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = {n: k.launches for n, k in kernels.items()}
+    finally:
+        plk.fused_clip_loss = fused
+    peak = torch.cuda.max_memory_allocated()
+    want = {"gae": 0, "ppo_loss_fwd": 32 * 4, "ppo_loss_bwd": 32 * 4}
+    if launches != want:
+        fail(f"bf16 path launch counts {launches} != {want}")
+    batch = captured["batch"]
+    rows = t.cfg.horizon * t.num_envs // t.cfg.num_minibatches
+    if [x.dtype for x in batch] != [torch.float32] * 10 or batch[0].shape != (rows, 6):
+        fail(f"the bf16 path fed the loss {[(x.dtype, tuple(x.shape)) for x in batch]}")
+    fwd, bwd, _ = loss_cases(plk, None, rows, 6, dev, batch=batch, coefs=captured["coefs"])
+    for k in (fwd, bwd):
+        print_kernel(k)
+    sec = (t2 - t1) / 3
+    out = {"phase": "ppo_bf16_cheetah", "compute_dtype": "bfloat16", "warm_up_s": t1 - t0,
+           "s_per_iteration": sec, "env_steps_per_s": t.steps_per_iteration / sec,
+           "kernel_launches": launches,
+           "loss_kernels_on_path_minibatch": {k["name"]: {f: k[f] for f in SLIM}
+                                              for k in (fwd, bwd)},
+           "max_memory_allocated": peak, "peak_above_held_before": peak - held_before,
+           "metrics": [{k: m[k] for k in ("iteration", "policy_loss", "value_loss", "kl",
+                                          "entropy", "grad_norm")} for m in logs]}
+    check_finite("bf16 PPO", logs[-1])
+    print(json.dumps(out))
+    return t, launches
+
+
+def phase_bf16_parity(dev):
+    """A small bfloat16 PPO update (fused: kernels on the card, plain versions
+    on the CPU), an LSTM-PPO update and a DDPG update block with pixel nets
+    (shared encoder, shifts injected) on the card against the same on the
+    CPU, from the same state, trajectory, replay contents and draws."""
+    from surreal_tpu_torch.algos import ddpg, ppo, ppo_lstm
+    from surreal_tpu_torch.data import replay as treplay
+    from surreal_tpu_torch.models.actor_critic import PPOActorCritic
+    from surreal_tpu_torch.models.ddpg_nets import DDPGActor, DDPGCritic
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(8)
+    out = {"phase": "bf16_updates_card_vs_cpu"}
+    # PPO: 16 x 32 rows, 2 epochs x 2 minibatches of 256 (the fused gate admits)
+    cfg = ppo.PPOConfig(horizon=16, epochs=2, num_minibatches=2, fused_loss=True)
+    tr = synthetic_trajectory(16, 32, 6, 17, rng)
+    net0 = PPOActorCritic(17, 6, (64, 64), generator=torch.Generator().manual_seed(0),
+                          compute_dtype=bf)
+    perms = torch.stack([torch.randperm(512, generator=torch.Generator().manual_seed(e))
+                         for e in range(2)])
+    res = {}
+    for d in ("cpu", dev):
+        net = copy.deepcopy(net0).to(d)
+        st, m = ppo.update(cfg, ppo.init_state(cfg, net, 17), ppo.Trajectory(
+            **{k: x.to(d) for k, x in tr.items()}), None, perms.to(d))
+        res[d] = (params_by_name({"net": net}), {k: float(x) for k, x in m.items()})
+    out["ppo"] = bf16_hold("bf16 PPO", res["cpu"], res[dev], 2 * 4 * cfg.lr * 1.01)
+    # LSTM-PPO: 8 envs x 16 steps, 2 epochs x 2 minibatches of 4 sequences
+    cfg = ppo.PPOConfig(horizon=16, epochs=2, num_minibatches=2)
+    tr = synthetic_trajectory(16, 8, 6, 17, rng, lstm_size=32)
+    net0 = PPOActorCritic(17, 6, (64, 64), use_lstm=True, lstm_size=32,
+                          generator=torch.Generator().manual_seed(1), compute_dtype=bf)
+    perms = torch.stack([torch.randperm(8, generator=torch.Generator().manual_seed(e))
+                         for e in range(2)])
+    for d in ("cpu", dev):
+        net = copy.deepcopy(net0).to(d)
+        traj = ppo_lstm.LSTMTrajectory(**{k: (tuple(c.to(d) for c in x) if k == "init_carry"
+                                              else x.to(d)) for k, x in tr.items()})
+        st, m = ppo_lstm.update(cfg, ppo.init_state(cfg, net, 17), traj, None, perms.to(d))
+        res[d] = (params_by_name({"net": net}), {k: float(x) for k, x in m.items()})
+    out["ppo_lstm"] = bf16_hold("bf16 LSTM-PPO", res["cpu"], res[dev], 2 * 4 * cfg.lr * 1.01)
+    # DDPG from pixels: 3 updates of batch 16 on 48 x 64 frames
+    shape, B, batch, U = (48, 64, 3), 4, 16, 3
+    cfg = ddpg.DDPGConfig(replay_capacity=16 * B, rollout_steps=8, batch_size=batch, n_step=3,
+                          updates_per_iteration=U, target_noise=0.2, shared_encoder=True,
+                          aug_shift=4)
+    chunks = [{"obs": torch.tensor(rng.integers(0, 256, (8, B, *shape)), dtype=torch.uint8),
+               "action": torch.tensor(rng.uniform(-1, 1, (8, B, 6)), dtype=torch.float32),
+               "reward": torch.tensor(rng.random((8, B)), dtype=torch.float32),
+               "done": torch.tensor(rng.random((8, B)) < 0.1)} for _ in range(3)]
+    gen = torch.Generator().manual_seed(2)
+    actor0 = DDPGActor(shape, 6, (64, 64), pixel_obs=True, detach_stem=True, generator=gen,
+                       compute_dtype=bf)
+    critic0 = DDPGCritic(shape, 6, (64, 64), pixel_obs=True, generator=gen, compute_dtype=bf)
+    ddpg.sync_encoder(actor0, critic0)
+    # 24 steps in a ring of 16: the oldest is step 8, and a 3-step window
+    # must end by step 23
+    indices = [(torch.tensor(rng.integers(8, 21, batch)), torch.tensor(rng.integers(0, B, batch)))
+               for _ in range(U)]
+    target_eps = torch.tensor(rng.standard_normal((U, batch, 6)), dtype=torch.float32)
+    offsets = [tuple(torch.tensor(rng.integers(0, 9, (batch, 2))) for _ in range(2))
+               for _ in range(U)]
+    for d in ("cpu", dev):
+        replay = ddpg.init_replay(cfg, B, 1, 6, d, obs_shape=shape, obs_dtype=torch.uint8)
+        for c in chunks:
+            replay = treplay.replay_insert(replay, {k: x.to(d) for k, x in c.items()})
+        actor, critic = copy.deepcopy(actor0).to(d), copy.deepcopy(critic0).to(d)
+        st, m = ddpg.update(cfg, ddpg.init_state(cfg, actor, critic, 1), replay, None,
+                            [(a.to(d), b.to(d)) for a, b in indices], target_eps.to(d),
+                            aug_offsets=[tuple(x.to(d) for x in o) for o in offsets])
+        res[d] = (params_by_name({"actor": st.actor, "critic": st.critic,
+                                  "target_actor": st.target_actor,
+                                  "target_critic": st.target_critic}),
+                  {k: float(x) for k, x in m.items()})
+    out["ddpg_pixel"] = bf16_hold("bf16 pixel DDPG", res["cpu"], res[dev],
+                                  2 * U * cfg.critic_lr * 1.01)
+    print(json.dumps(out))
+    return out
+
+
+def phase_overlap(dev, fused_trainer):
+    """PPO on cheetah-run at bench.py's configuration with the overlapped
+    step and the fused loss: the priming rollout, then 3 iterations, each
+    checked to update on the trajectory the previous call returned, and
+    each launching each loss kernel 32 times and GAE never (the counters
+    set to 0 before each iteration, read after it); each timed beside one
+    iteration of the fused step (phase 5's trainer), in turns."""
+    from surreal_tpu_torch.algos import ppo
+    from surreal_tpu_torch.algos.ppo import PPOConfig
+    from surreal_tpu_torch.train import PPOTrainer
+
+    kernels = path_kernels()
+    cfg = PPOConfig(horizon=128, epochs=4, num_minibatches=8, lr=3e-4, fused_loss=True)
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    t = PPOTrainer("cheetah-run", cfg, num_envs=256, hidden=(256, 256), seed=0, device=dev,
+                   overlap=True)
+    consumed = []
+    update = ppo.update
+
+    def recording(cfg_, state, traj, *a, **k):
+        consumed.append(traj)
+        return update(cfg_, state, traj, *a, **k)
+
+    launches = {n: 0 for n in kernels}
+    times = {"overlap": [], "fused": []}
+    ppo.update = recording
+    try:
+        t0 = time.perf_counter()
+        t.run(1, log_every=1)  # the priming rollout and the first iteration
+        torch.cuda.synchronize()
+        prime_s = time.perf_counter() - t0
+        for i in range(3):
+            for label, trainer in (("overlap", t), ("fused", fused_trainer)):
+                pending = t._pending
+                for k in kernels.values():
+                    k.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = trainer.run(1, log_every=1)[-1]
+                torch.cuda.synchronize()
+                times[label].append(time.perf_counter() - t0)
+                if label == "overlap":
+                    for n, k in kernels.items():
+                        launches[n] += k.launches
+                    if consumed[-1] is not pending or t._pending is pending:
+                        fail(f"overlapped iteration {i + 2} did not update on the trajectory "
+                             "the previous call returned")
+                    check_finite("overlapped PPO", m)
+    finally:
+        ppo.update = update
+    peak = torch.cuda.max_memory_allocated()
+    want = {"gae": 0, "ppo_loss_fwd": 32 * 3, "ppo_loss_bwd": 32 * 3}
+    if launches != want:
+        fail(f"overlap path launch counts {launches} != {want}")
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    out = {"phase": "ppo_overlap_cheetah", "prime_and_first_iteration_s": prime_s,
+           "s_per_iteration_overlap": times["overlap"], "s_per_iteration_fused": times["fused"],
+           "mean_s_per_iteration": mean,
+           "env_steps_per_s_overlap": t.steps_per_iteration / mean["overlap"],
+           "env_steps_per_s_fused": t.steps_per_iteration / mean["fused"],
+           "kernel_launches": launches, "pending_obs_bytes": nbytes(t._pending.obs),
+           "max_memory_allocated": peak, "peak_above_held_before": peak - held_before}
+    print(json.dumps(out))
+    return launches
+
+
+CHEETAH_ITER = 256 * 128  # env steps per iteration of the cheetah-run PPO recipe
+# --learn's tasks: the recipe's flags after `train ppo`, env steps per
+# iteration, the bar, and the evidence's final 32-episode deterministic
+# evaluations by compute dtype
+LEARN_TASKS = {
+    "cartpole-balance": dict(
+        flags=CARTPOLE_FLAGS, iter=CARTPOLE_ITER, bar=900.0,
+        evidence={"float32": [EVIDENCE_EVAL]}),
+    # surreal_tpu_torch/envs/recipes.py: 15M steps, 256 envs, the default
+    # (unfused) loss; results/cheetah_bf16_ppo_r3.txt (bfloat16, seed 0),
+    # results/cheetah_ppo_r4.txt, cheetah_ppo_s1_r5.txt, cheetah_ppo_s2_r5.txt
+    # (float32, seeds 0-2). The bar is below every one of them.
+    "cheetah-run": dict(
+        flags=["--env.env_name", "cheetah-run"], iter=CHEETAH_ITER, bar=700.0,
+        evidence={"bfloat16": [816.9249877929688],
+                  "float32": [784.4754638671875, 745.6201171875, 791.81103515625]}),
+}
+LEARN_DTYPES = ("bfloat16", "float32")
+
+
+def learn(out_dir: str | None, task: str, flags: list[str]) -> None:
+    """Trains `task`'s PPO recipe through the port's CLI to its budget
+    (evals every 500,000 env steps), then evaluates the last checkpoint over
+    32 episodes, deterministically and sampled, as the evidence files did.
+    Fails below the task's bar. `flags` go to the train command after the
+    recipe's (a diagnosis run: another seed, the other loss, a shorter log
+    interval). cheetah-run without a `--learner.compute_dtype` flag trains
+    the recipe in bfloat16 and in float32, as two processes at once on the
+    card, each under DIR/<dtype>."""
     from surreal_tpu_torch.device import resolve
 
+    spec = LEARN_TASKS[task]
     resolve("cuda")
     smi = phase_card()
     phase_build()
     root = out_dir or tempfile.mkdtemp(prefix="chip_smoke_learn_")
-    exp = os.path.join(root, "cartpole_balance_learn")
+    os.makedirs(root, exist_ok=True)
+    if task == "cheetah-run" and "--learner.compute_dtype" not in flags:
+        results = learn_dtypes(root, flags)
+    else:
+        results = [learn_one(root, task, spec, flags)]
+    low = [r for r in results if not r["final_eval_32"]["return_mean"] >= spec["bar"]]
+    if low:
+        fail(f"{task} scored " + ", ".join(
+            f"{r['final_eval_32']['return_mean']} ({r['compute_dtype']})" for r in low)
+            + f" < {spec['bar']} after its recipe's budget (evidence {spec['evidence']})")
+    print(f"card: {smi}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+def learn_one(root: str, task: str, spec: dict, flags: list[str]) -> dict:
+    """One recipe run and its final evaluations; prints and returns its
+    JSON line."""
+    name = task.replace("-", "_") + "_learn"
+    exp = os.path.join(root, name)
     with LogLines() as lines:
         t0 = time.perf_counter()
-        cli_stdout(["train", "ppo", *CARTPOLE_FLAGS, "--session.results_dir", root,
-                    "--session.experiment_name", "cartpole_balance_learn",
-                    "--session.restore", "false", "--device", "cuda", *flags])
+        cli_stdout(["train", "ppo", *spec["flags"], "--session.results_dir", root,
+                    "--session.experiment_name", name, "--session.restore", "false",
+                    "--device", "cuda", *flags])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     with open(os.path.join(exp, "config.json")) as f:
@@ -1868,24 +2295,52 @@ def learn(out_dir: str | None, flags: list[str]) -> None:
         final[label] = json.loads(cli_stdout(
             ["eval", "--experiment", exp, "--episodes", "32", "--device", "cuda", *extra]
         ).strip().splitlines()[-1])
-    iters = cfg["session"]["total_env_steps"] // CARTPOLE_ITER
-    train_curve = [line for line in lines if line.startswith("it ")]
-    print(json.dumps({
-        "phase": "learn", "env": "cartpole-balance", "flags": flags,
-        "seed": cfg["session"]["seed"], "fused_loss": cfg["learner"]["fused_loss"],
-        "iterations": iters,
-        "env_steps": iters * CARTPOLE_ITER, "wall_s": wall,
-        "env_steps_per_s_with_evals": iters * CARTPOLE_ITER / wall,
-        "eval_curve": evals_logged(lines), "train_log": train_curve,
+    iters = cfg["session"]["total_env_steps"] // spec["iter"]
+    dtype = cfg["learner"]["compute_dtype"]
+    out = {
+        "phase": "learn", "env": task, "flags": flags, "seed": cfg["session"]["seed"],
+        "compute_dtype": dtype, "fused_loss": cfg["learner"]["fused_loss"],
+        "iterations": iters, "env_steps": iters * spec["iter"], "wall_s": wall,
+        "env_steps_per_s_with_evals": iters * spec["iter"] / wall,
+        "eval_curve": evals_logged(lines),
+        "train_log": [ln for ln in lines if ln.startswith("it ")],
         "final_eval_32": final["deterministic"], "final_eval_32_stochastic": final["stochastic"],
-        "evidence_eval_32": EVIDENCE_EVAL, "results_dir": root}))
-    if not final["deterministic"]["return_mean"] >= 900:
-        fail(f"cartpole-balance scored {final['deterministic']['return_mean']} < 900 "
-             f"after its recipe's budget (evidence {EVIDENCE_EVAL})")
-    print(f"card: {smi}")
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+        "bar": spec["bar"], "evidence_eval_32": spec["evidence"].get(dtype), "results_dir": root}
+    print(json.dumps(out))
+    return out
+
+
+def learn_dtypes(root: str, flags: list[str]) -> list[dict]:
+    """The cheetah-run recipe in each of LEARN_DTYPES at once, one child
+    process each (`--learn DIR/<dtype> cheetah-run --learner.compute_dtype
+    <dtype>`), their output under DIR/<dtype>.log; returns their learn
+    lines. The children are waited for, whatever happens."""
+    procs = {}
+    try:
+        for dtype in LEARN_DTYPES:
+            log = open(os.path.join(root, f"{dtype}.log"), "w")
+            procs[dtype] = (log, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--learn", os.path.join(root, dtype),
+                 "cheetah-run", "--learner.compute_dtype", dtype, *flags],
+                stdout=log, stderr=subprocess.STDOUT))
+        codes = {dtype: proc.wait() for dtype, (_, proc) in procs.items()}
+    finally:
+        for log, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    results = []
+    for dtype in LEARN_DTYPES:
+        with open(os.path.join(root, f"{dtype}.log")) as f:
+            text = f.read()
+        lines = [json.loads(ln) for ln in text.splitlines()
+                 if ln.startswith('{"phase": "learn"')]
+        if not lines:
+            fail(f"the {dtype} run (exit {codes[dtype]}) printed no result: {text[-3000:]}")
+        print(json.dumps(lines[-1]))
+        results.append(lines[-1])
+    return results
 
 
 def loss_timing(root: str) -> None:
@@ -2200,8 +2655,10 @@ def main():
         return
     if sys.argv[1:2] == ["--learn"]:
         rest = sys.argv[2:]
-        out_dir = rest.pop(0) if rest and not rest[0].startswith("--") else None
-        learn(out_dir, rest)
+        out_dir = (rest.pop(0) if rest and not rest[0].startswith("--")
+                   and rest[0] not in LEARN_TASKS else None)
+        task = rest.pop(0) if rest and rest[0] in LEARN_TASKS else "cartpole-balance"
+        learn(out_dir, task, rest)
         return
     from surreal_tpu_torch.device import resolve
 
@@ -2218,11 +2675,14 @@ def main():
     phase_serving(dev, trainer)
     phase_envs(dev)
     finger_trainer, finger_launches, finger_times = phase_finger(dev)
-    cli_launches = phase_cli(dev, ddpg_trainer)
+    cli_launches, cli_bf16_launches = phase_cli(dev, ddpg_trainer)
     render_cases = phase_render(dev)
     pixel_trainer, pixel_launches, pixel_times = phase_pixel_ppo(dev)
     pixel_ddpg_launches = phase_pixel_ddpg(dev)[1]  # its 2.1 GB ring is freed here
     cli_pixel_launches = phase_cli_pixel(dev)
+    bf16_launches = phase_bf16(dev)[1]
+    phase_bf16_parity(dev)
+    overlap_launches = phase_overlap(dev, trainer)
     breakdown(trainer)
     new_cells_profile(ddpg_trainer, ddpg_times, lstm_trainer, lstm_times)
     finger_profile(finger_trainer, finger_times)
@@ -2235,7 +2695,9 @@ def main():
                    "cli_ppo_cartpole": cli_launches[name],
                    "ppo_pixel_cheetah": pixel_launches[name],
                    "ddpg_pixel_ball_in_cup": pixel_ddpg_launches[name],
-                   "cli_ppo_pixel_cheetah": cli_pixel_launches[name]}
+                   "cli_ppo_pixel_cheetah": cli_pixel_launches[name],
+                   "ppo_bf16": bf16_launches[name], "ppo_overlap": overlap_launches[name],
+                   "cli_ppo_cartpole_bf16_overlap": cli_bf16_launches[name]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         for extra in ("tol", "bytes", "call_ms", "plain_call_ms"):

@@ -390,3 +390,26 @@ def train_step(cfg: PPOConfig, env: Environment, flatten_obs: Callable,
     metrics.update(ep_stats)
     metrics["reward_per_step"] = torch.mean(traj.reward)
     return state, env_state, obs, ep_ret, metrics
+
+
+def train_step_overlapped(cfg: PPOConfig, env: Environment, flatten_obs: Callable,
+                          state: PPOTrainState, env_state: EnvState, obs: Tensor,
+                          ep_ret: Tensor, pending: Trajectory, generator: torch.Generator,
+                          noise: Tensor | None = None, perms: Tensor | None = None):
+    """The double-buffered step: iteration k collects trajectory k with the
+    pre-update parameters (through `acting_params`, so `publish_every`
+    composes) and updates on `pending`, trajectory k-1: an actor/learner
+    staleness of one update, as the reference's actors always ran one
+    publish behind. The generator's draws come in the reference's key
+    order, the rollout's, then the update's. The rollout is done reading
+    the parameters before the update writes them in place: both halves stay
+    on one stream, in this order. `metrics["reward_per_step"]` is
+    `pending`'s; the episode statistics are the new rollout's. Returns
+    (state, env_state, obs, ep_ret, traj, metrics): `traj` is the next
+    call's `pending`."""
+    traj, env_state, obs, ep_ret, ep_stats = rollout(
+        cfg, env, flatten_obs, state, env_state, obs, ep_ret, generator, noise)
+    state, metrics = update(cfg, state, pending, generator, perms)
+    metrics.update(ep_stats)
+    metrics["reward_per_step"] = torch.mean(pending.reward)
+    return state, env_state, obs, ep_ret, traj, metrics

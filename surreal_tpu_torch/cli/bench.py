@@ -28,15 +28,13 @@ def main(device: str = "cuda") -> dict:
     horizon = int(os.environ.get("BENCH_HORIZON", 128))
     warmup_iters = int(os.environ.get("BENCH_WARMUP_ITERS", 2))
     timed_iters = int(os.environ.get("BENCH_ITERS", 30))
+    # BENCH_DTYPE=bfloat16 runs the networks in bfloat16; the parameters,
+    # the optimizer and GAE stay float32, as in the reference's bench.py
     dtype = os.environ.get("BENCH_DTYPE", "float32")
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"BENCH_DTYPE={dtype}: compute dtypes other than float32 are not ported yet "
-            "(ROADMAP.md, Queue A, A13)")
 
     cfg = PPOConfig(horizon=horizon, epochs=4, num_minibatches=8, lr=3e-4)
     trainer = PPOTrainer("cheetah-run", cfg, num_envs=num_envs, seed=0, hidden=(256, 256),
-                         device=device)
+                         device=device, compute_dtype=dtype)
     dev = trainer.device
 
     def sync():

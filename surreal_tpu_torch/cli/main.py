@@ -53,10 +53,6 @@ def _check_ported(learner: Config, env_cfg: Config, session: Config) -> None:
     """Raises NotImplementedError, naming its ROADMAP.md Queue A item, for a
     configuration whose path the port does not have yet."""
     missing = []
-    if str(learner.compute_dtype) != "float32":
-        missing.append(f"learner.compute_dtype {learner.compute_dtype!r} (A13)")
-    if learner.get("overlap"):
-        missing.append("learner.overlap, the overlapped PPO step (A17)")
     if str(env_cfg.env_name).startswith("gym:"):
         missing.append("gym: host-loop adapters (A16)")
     m = session.mesh
@@ -71,22 +67,25 @@ def _check_ported(learner: Config, env_cfg: Config, session: Config) -> None:
 def _build_trainer(learner: Config, env_cfg: Config, session: Config, device: str):
     seed = int(session.seed)
     algo_cfg = to_algo_config(learner)
-    pixels = {"pixel_obs": bool(env_cfg.pixel_obs),
+    # the networks' compute dtype (bfloat16: A13); parameters and the
+    # optimizer stay float32, as in the reference
+    common = {"device": device, "compute_dtype": str(learner.compute_dtype),
+              "pixel_obs": bool(env_cfg.pixel_obs),
               "pixel_kwargs": env_cfg.pixel.to_dict() if env_cfg.pixel_obs else None}
     if learner.algo == "ppo":
         from surreal_tpu_torch.train import PPOTrainer
 
         return PPOTrainer(
             env_cfg.env_name, algo_cfg, num_envs=int(env_cfg.num_envs), seed=seed,
-            hidden=tuple(learner.hidden), device=device, use_lstm=bool(learner.use_lstm),
-            lstm_size=int(learner.lstm_size), **pixels,
+            hidden=tuple(learner.hidden), use_lstm=bool(learner.use_lstm),
+            lstm_size=int(learner.lstm_size), overlap=bool(learner.overlap), **common,
         )
     from surreal_tpu_torch.train import DDPGTrainer
 
     return DDPGTrainer(
         env_cfg.env_name, algo_cfg, num_envs=int(env_cfg.num_envs), seed=seed,
         actor_hidden=tuple(learner.actor_hidden), critic_hidden=tuple(learner.critic_hidden),
-        device=device, **pixels,
+        **common,
     )
 
 

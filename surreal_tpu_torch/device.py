@@ -12,9 +12,15 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
     Also turns TF32 off for matmuls and cuDNN. The physics assembly must run
     in full float32: at reduced precision the reference measured an
     indefinite mass matrix (surreal_tpu/envs/physics/engine.py,
-    `_highest_precision`), which detonates the SPD Cholesky solves."""
+    `_highest_precision`), which detonates the SPD Cholesky solves.
+
+    And turns off cuBLAS's reduced-precision reduction for bfloat16 GEMMs.
+    Allowed, it may sum a split-K GEMM's partial products in bfloat16,
+    while XLA accumulates a bfloat16 dot in float32 and rounds once (the
+    networks' compute dtype, A13)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -1,5 +1,13 @@
 """Network blocks (port of surreal_tpu/models/blocks.py: the MLP torso and
-the conv stem; and the LSTM cell the reference takes from flax)."""
+the conv stem; and the LSTM cell the reference takes from flax).
+
+Each block takes a `compute_dtype` (float32 by default), flax's `dtype`:
+the parameters stay float32 (flax's `param_dtype`), and the forward casts
+the input, the weights and the biases to the compute dtype, as flax's
+`promote_dtype` does. Autograd's cast backward then hands float32
+gradients to the float32 parameters, so Adam, the Z-filter and the
+checkpoints keep float32 masters. The module itself is never `.to()`-ed
+to the compute dtype."""
 
 from __future__ import annotations
 
@@ -11,6 +19,32 @@ from torch import nn
 from torch.nn import functional as F
 
 _ACTIVATIONS = {"tanh": torch.tanh, "relu": torch.relu}
+
+
+def resolve_dtype(dtype: str | torch.dtype) -> torch.dtype:
+    """A compute dtype from its torch dtype or its name ("bfloat16", the
+    CLI's `learner.compute_dtype`)."""
+    out = getattr(torch, dtype, None) if isinstance(dtype, str) else dtype
+    if not (isinstance(out, torch.dtype) and out.is_floating_point):
+        raise ValueError(f"unknown compute dtype {dtype!r}")
+    return out
+
+
+def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """flax's Dense at x's dtype. Below float32 the kernel and the bias are
+    cast to it and the bias is added after the product has been rounded
+    (flax: `y = dot(x, k); y += b`, two roundings); F.linear would add it
+    before the rounding (cuBLAS's epilogue, oneDNN's post-op) and differs
+    in ~30% of bfloat16 outputs. Float32 keeps F.linear."""
+    if x.dtype == torch.float32:
+        return layer(x)
+    return x @ layer.weight.to(x.dtype).T + layer.bias.to(x.dtype)
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """flax's LayerNorm at x's dtype: the statistics, the scale and the
+    shift in float32, one rounding back to x's dtype at the end."""
+    return ln(x.to(torch.float32)).to(x.dtype)
 
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
@@ -31,8 +65,10 @@ class MLP(nn.Module):
     normalised before its activation."""
 
     def __init__(self, in_dim: int, hidden: Sequence[int], activation: str = "tanh",
-                 layer_norm: bool = False, generator: torch.Generator | None = None):
+                 layer_norm: bool = False, generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         if activation not in _ACTIVATIONS:
             raise NotImplementedError(f"activation {activation!r} is not ported yet")
         self.activation = _ACTIVATIONS[activation]
@@ -48,10 +84,11 @@ class MLP(nn.Module):
         self.out_dim = in_dim
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.compute_dtype)
         for i in range(self.num_layers):
-            x = getattr(self, f"dense_{i}")(x)
+            x = linear(getattr(self, f"dense_{i}"), x)
             if i == 0 and self.layer_norm is not None:
-                x = self.layer_norm(x)
+                x = layer_norm(self.layer_norm, x)
             x = self.activation(x)
         return x
 
@@ -67,16 +104,19 @@ def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
 
 class ConvStem(nn.Module):
     """Conv encoder for pixel observations (..., H, W, C), uint8 (scaled by
-    1/255) or float: convs `conv_i` with 'SAME' padding and relu, then the
-    NHWC-flattened features through `dense` and relu (flax's `Conv_i` and
-    `Dense_0`). Each conv pads explicitly with XLA's pads, which
-    `Conv2d(padding=...)` cannot express when they are asymmetric (84 x 84:
-    (2, 2), then (1, 2), then (1, 1))."""
+    1/255 in the compute dtype, as the reference does) or float: convs
+    `conv_i` with 'SAME' padding and relu, then the NHWC-flattened features
+    through `dense` and relu (flax's `Conv_i` and `Dense_0`). Each conv
+    pads explicitly with XLA's pads, which `Conv2d(padding=...)` cannot
+    express when they are asymmetric (84 x 84: (2, 2), then (1, 2), then
+    (1, 1))."""
 
     def __init__(self, obs_shape: Sequence[int], features: Sequence[int] = (32, 64, 64),
                  kernels: Sequence[int] = (8, 4, 3), strides: Sequence[int] = (4, 2, 1),
-                 out_dim: int = 256, generator: torch.Generator | None = None):
+                 out_dim: int = 256, generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         h, w, c = obs_shape
         self.pads, self.strides = [], list(strides)
         for i, (f, k, s) in enumerate(zip(features, kernels, strides)):
@@ -96,14 +136,20 @@ class ConvStem(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-3]
         x = x.reshape(-1, *x.shape[-3:])
-        x = x.to(torch.float32) / 255.0 if x.dtype == torch.uint8 else x.to(torch.float32)
+        dt = self.compute_dtype
+        x = x.to(dt) / 255.0 if x.dtype == torch.uint8 else x.to(dt)
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
         for i in range(self.num_convs):
             conv = getattr(self, f"conv_{i}")
-            x = torch.relu(F.conv2d(F.pad(x, self.pads[i]), conv.weight, conv.bias,
-                                    self.strides[i]))
+            x = F.pad(x, self.pads[i])
+            if dt == torch.float32:
+                x = F.conv2d(x, conv.weight, conv.bias, self.strides[i])
+            else:  # flax's nn.Conv adds the bias after the conv's output is rounded
+                x = (F.conv2d(x, conv.weight.to(dt), None, self.strides[i])
+                     + conv.bias.to(dt)[:, None, None])
+            x = torch.relu(x)
         x = x.permute(0, 2, 3, 1).reshape(*lead, -1)  # flattened in NHWC order, as flax
-        return torch.relu(self.dense(x))
+        return torch.relu(linear(self.dense, x))
 
 
 class LSTMCell(nn.Module):
@@ -111,11 +157,15 @@ class LSTMCell(nn.Module):
     along the first axis of `weight_ih` (4H, in), `weight_hh` (4H, H) and the
     one bias (4H,), which belongs to the hidden projection; the carry is
     `(c, h)`, in the reference's order (torch.nn.LSTMCell takes `(h, c)` and
-    has two biases)."""
+    has two biases). In the compute dtype, as flax's `dtype=`: the input
+    and the hidden projections are each rounded, the hidden one's bias added
+    after its product, and the carry is kept in it."""
 
-    def __init__(self, in_dim: int, features: int, generator: torch.Generator | None = None):
+    def __init__(self, in_dim: int, features: int, generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.features = features
+        self.compute_dtype = compute_dtype
         self.weight_ih = nn.Parameter(torch.empty(4 * features, in_dim))
         self.weight_hh = nn.Parameter(torch.empty(4 * features, features))
         self.bias = nn.Parameter(torch.zeros(4 * features))
@@ -128,11 +178,16 @@ class LSTMCell(nn.Module):
     def input_gates(self, x: torch.Tensor) -> torch.Tensor:
         """The input's share of the four gates, (..., 4H): it does not depend
         on the carry, so a whole sequence takes one matmul."""
-        return x @ self.weight_ih.T
+        dt = self.compute_dtype
+        return x.to(dt) @ self.weight_ih.to(dt).T
 
     def step(self, input_gates: torch.Tensor, carry):
+        # the weights are cast at every step, as flax casts them in every
+        # call of the cell: their gradients then sum over steps in float32
+        dt = self.compute_dtype
         c, h = carry
-        i, f, g, o = (input_gates + (h @ self.weight_hh.T + self.bias)).chunk(4, dim=-1)
+        hidden = h.to(dt) @ self.weight_hh.to(dt).T + self.bias.to(dt)
+        i, f, g, o = (input_gates + hidden).chunk(4, dim=-1)
         new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         new_h = torch.sigmoid(o) * torch.tanh(new_c)
         return (new_c, new_h), new_h

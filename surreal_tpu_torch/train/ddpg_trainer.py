@@ -16,6 +16,7 @@ from surreal_tpu_torch.device import resolve as resolve_device
 from surreal_tpu_torch.envs import base as env_base
 from surreal_tpu_torch.envs import make_env
 from surreal_tpu_torch.envs.wrappers import PixelWrapper, pixel_flatten_obs
+from surreal_tpu_torch.models.blocks import resolve_dtype
 from surreal_tpu_torch.models.ddpg_nets import DDPGActor, DDPGCritic
 from surreal_tpu_torch.models.z_filter import ZFilterState
 from surreal_tpu_torch.train.evaluator import evaluate_policy
@@ -34,7 +35,8 @@ class DDPGTrainer(Trainer):
 
     def __init__(self, env_name: str, cfg: ddpg.DDPGConfig | None = None, num_envs: int = 128,
                  seed: int = 0, actor_hidden=(300, 200), critic_hidden=(400, 300),
-                 device: str | torch.device | None = None, pixel_obs: bool = False,
+                 device: str | torch.device | None = None,
+                 compute_dtype: str | torch.dtype = torch.float32, pixel_obs: bool = False,
                  pixel_kwargs: dict | None = None, env_kwargs: dict | None = None,
                  debug_checks: bool = False, mesh=None):
         if mesh is not None:
@@ -64,10 +66,12 @@ class DDPGTrainer(Trainer):
         init_gen = torch.Generator().manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         act_dim = self.env.action_dim
+        dtype = resolve_dtype(compute_dtype)
         actor = DDPGActor(net_in, act_dim, tuple(actor_hidden), pixel_obs=pixel_obs,
-                          detach_stem=cfg.shared_encoder, generator=init_gen)
+                          detach_stem=cfg.shared_encoder, generator=init_gen,
+                          compute_dtype=dtype)
         critic = DDPGCritic(net_in, act_dim, tuple(critic_hidden), pixel_obs=pixel_obs,
-                            generator=init_gen)
+                            generator=init_gen, compute_dtype=dtype)
         if cfg.shared_encoder:  # one stem from step 0, the targets' too
             ddpg.sync_encoder(actor, critic)
         self.state = ddpg.init_state(self.cfg, actor.to(self.device), critic.to(self.device),

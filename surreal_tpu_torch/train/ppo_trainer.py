@@ -1,7 +1,8 @@
 """Single-device PPO trainer (port of surreal_tpu/train/ppo_trainer.py
-without the mesh and overlap paths): builds the env batch, pixel-wrapped
-or not, and the network, feed-forward or recurrent, then runs train
-steps."""
+without the mesh path): builds the env batch, pixel-wrapped or not, and the
+network, feed-forward or recurrent, in its compute dtype, then runs train
+steps, fused or overlapped (`overlap`: the update of iteration k consumes
+the trajectory of iteration k - 1)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from surreal_tpu_torch.envs import base as env_base
 from surreal_tpu_torch.envs import make_env
 from surreal_tpu_torch.envs.wrappers import PixelWrapper, pixel_flatten_obs
 from surreal_tpu_torch.models.actor_critic import PPOActorCritic
+from surreal_tpu_torch.models.blocks import resolve_dtype
 from surreal_tpu_torch.models.distributions import DiagGauss
 from surreal_tpu_torch.models.z_filter import ZFilterState
 from surreal_tpu_torch.train.evaluator import evaluate_policy
@@ -29,12 +31,16 @@ from surreal_tpu_torch.train.loop import (
 class PPOTrainer(Trainer):
     def __init__(self, env_name: str, cfg: ppo.PPOConfig | None = None, num_envs: int = 256,
                  seed: int = 0, hidden=(64, 64), device: str | torch.device | None = None,
+                 compute_dtype: str | torch.dtype = torch.float32,
                  pixel_obs: bool = False, pixel_kwargs: dict | None = None,
                  use_lstm: bool = False, lstm_size: int = 128, env_kwargs: dict | None = None,
                  debug_checks: bool = False, mesh=None, overlap: bool = False):
-        if mesh is not None or overlap:
-            raise NotImplementedError(
-                "mesh and overlap are not ported yet (ROADMAP.md, Queue A)")
+        if mesh is not None:
+            raise NotImplementedError("mesh is not ported yet (ROADMAP.md, Queue A)")
+        if overlap and use_lstm:
+            raise ValueError("overlap does not compose with use_lstm")
+        self.overlap = overlap
+        self._pending = None  # overlap: the trajectory awaiting its update
         cfg = cfg or ppo.PPOConfig()
         self.device = resolve_device(device)
         self.env = make_env(env_name, device=self.device, **(env_kwargs or {}))
@@ -55,7 +61,8 @@ class PPOTrainer(Trainer):
         self.use_lstm = use_lstm
         net = PPOActorCritic(net_in, self.env.action_dim, hidden=tuple(hidden),
                              pixel_obs=pixel_obs, use_lstm=use_lstm, lstm_size=lstm_size,
-                             generator=init_gen).to(self.device)
+                             generator=init_gen,
+                             compute_dtype=resolve_dtype(compute_dtype)).to(self.device)
         self.env_state, ts0 = self.env.reset(num_envs, self.generator)
         self.obs = self._flatten(ts0.obs)
         self.carry = net.initial_carry((num_envs,))  # None without an LSTM
@@ -70,7 +77,10 @@ class PPOTrainer(Trainer):
 
     # ---- full-state checkpointing: the network, Adam, the Z-filter, the
     # KL/LR adaptation, the actors' snapshot, the env batch (and its frame
-    # stacks), the LSTM carry, the generator and the counters all survive ----
+    # stacks), the LSTM carry, the generator and the counters all survive.
+    # The overlapped step's pending trajectory does not, as in the
+    # reference: a restored trainer primes again, so a resumed overlapped
+    # run is not the uninterrupted one ----
     @property
     def full_state(self) -> dict:
         s = self.state
@@ -96,9 +106,26 @@ class PPOTrainer(Trainer):
         if self.use_lstm:
             self.carry = tuple(fs["carry"])
         self._load_run_state(fs)
+        self._pending = None  # overlap: primed again by the next run()
+
+    def run(self, iterations: int, log_every: int | None = None, metric_sink=None) -> list[dict]:
+        """With `overlap`, the first call (and the first after
+        `load_full_state`) primes the double buffer with one rollout on the
+        current parameters; its env steps are not counted (`env_steps` is
+        `global_iter` x `steps_per_iteration`, as in the reference)."""
+        if self.overlap and self._pending is None:
+            self._pending, self.env_state, self.obs, self.ep_ret, _ = ppo.rollout(
+                self.cfg, self.env, self._flatten, self.state, self.env_state, self.obs,
+                self.ep_ret, self.generator)
+        return super().run(iterations, log_every, metric_sink)
 
     def _iterate(self) -> dict:
-        if self.use_lstm:
+        if self.overlap:
+            (self.state, self.env_state, self.obs, self.ep_ret, self._pending,
+             metrics) = ppo.train_step_overlapped(
+                self.cfg, self.env, self._flatten, self.state, self.env_state, self.obs,
+                self.ep_ret, self._pending, self.generator)
+        elif self.use_lstm:
             (self.state, self.env_state, self.obs, self.carry, self.ep_ret,
              metrics) = ppo_lstm.train_step(
                 self.cfg, self.env, self._flatten, self.state, self.env_state, self.obs,

@@ -2,7 +2,7 @@
 onto the target's device and structure) and the trainers' full state: a
 run saved, loaded into a fresh trainer built with another seed and
 continued equals the uninterrupted run bit for bit, for PPO with the fused
-loss, LSTM-PPO with a stale actor snapshot, DDPG past its replay warm-up,
+loss, LSTM-PPO with a stale actor snapshot and in bfloat16, DDPG past its replay warm-up,
 and pixel PPO and pixel DDPG (shared encoder, random shift), whose frame
 stacks are part of the state."""
 
@@ -111,6 +111,9 @@ MAKERS = {
     "ppo_fused": lambda seed: _ppo(seed),
     "lstm_ppo_publish_every_2": lambda seed: _ppo(seed, use_lstm=True, lstm_size=16,
                                                   publish_every=2),
+    # bfloat16 networks (float32 parameters and moments) with their bfloat16 carry
+    "lstm_ppo_bf16": lambda seed: _ppo(seed, use_lstm=True, lstm_size=16,
+                                       compute_dtype=torch.bfloat16),
     "ddpg": _ddpg,
     "pixel_ppo": _pixel_ppo,
     "pixel_ddpg": _pixel_ddpg,
@@ -159,8 +162,10 @@ def test_resume_is_bitwise_the_uninterrupted_run(tmp_path, kind):
     _assert_equal_states(resumed.full_state, straight.full_state)
     if kind == "ddpg":
         assert straight.state.update_step == 8 and straight.replay.total == 16
-    if kind.startswith("lstm"):
+    if kind.startswith("lstm_ppo_publish"):
         assert straight.state.psync.version == 4
+    if kind.endswith("bf16"):
+        assert straight.full_state["carry"][0].dtype == torch.bfloat16
     if kind.startswith("pixel"):
         assert straight.full_state["env_state"]["stack"].dtype == torch.uint8
         assert straight.full_state["env_state"]["stack"].shape == (4, 48, 48, 3)

@@ -19,6 +19,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from surreal_tpu.cli.configs import generate_configs as ref_generate_configs
 from surreal_tpu_torch.cli.configs import generate_configs
@@ -133,8 +134,6 @@ def test_envs_lists_the_registry(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--learner.compute_dtype", "bfloat16"], "A13"),
-    (["--learner.overlap", "true"], "A17"),
     (["--session.mesh.data", "2"], "A15"),
     (["--session.mesh.model", "2"], "A15"),
     (["--session.multihost.num_processes", "2"], "A15"),
@@ -144,6 +143,40 @@ def test_unported_knobs_raise_naming_their_item(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         _train(tmp_path, "n", 64, *flags)
     assert not (tmp_path / "n").exists()  # raised before anything was written
+
+
+@pytest.mark.parametrize("algo,flags", [
+    ("ppo", ["--learner.compute_dtype", "bfloat16"]),
+    ("ppo", ["--learner.overlap", "true"]),
+    ("ppo", ["--learner.compute_dtype", "bfloat16", "--learner.overlap", "true"]),
+    ("ddpg", ["--learner.compute_dtype", "bfloat16"]),
+], ids=["bf16", "overlap", "bf16_overlap", "ddpg_bf16"])
+def test_learner_options_train_and_evaluate(tmp_path, capsys, algo, flags):
+    """learner.compute_dtype and learner.overlap reach the trainers, as the
+    reference's CLI passes them; the run's checkpoint evaluates."""
+    from surreal_tpu_torch.cli import main as cli_main
+
+    built = []
+    build = cli_main._build_trainer
+    def spy(*a, **k):
+        built.append(build(*a, **k))
+        return built[-1]
+    cli_main._build_trainer = spy
+    try:
+        _train(tmp_path, "o", 64 if algo == "ppo" else 96, *flags, algo=algo, ckpt_every=32)
+        capsys.readouterr()
+        assert main(["eval", "--experiment", str(tmp_path / "o"), "--episodes", "2",
+                     "--device", "cpu"]) == 0
+    finally:
+        cli_main._build_trainer = build
+    assert math.isfinite(json.loads(capsys.readouterr().out.splitlines()[-1])["return_mean"])
+    trainer = built[0]
+    net = trainer.state.net if algo == "ppo" else trainer.state.actor
+    want = "bfloat16" in flags and torch.bfloat16 or torch.float32
+    assert net.torso.compute_dtype == want if algo == "ddpg" else (
+        net.actor_torso.compute_dtype == want)
+    if algo == "ppo":
+        assert trainer.overlap == ("--learner.overlap" in flags)
 
 
 def test_ddpg_run(tmp_path, capsys):

@@ -267,6 +267,37 @@ def test_loss_kernel_propagates_nan_like_plain(cuda_device):
         assert torch.equal(torch.isnan(a), torch.isnan(b))
 
 
+def test_loss_kernels_on_a_bf16_actor_critics_outputs(cuda_device):
+    """The loss kernels take float32 under bfloat16 networks (A13), as the
+    reference's Pallas loss does: the heads' outputs are cast to float32
+    and log_std stays float32. N = 4096 rows of a bfloat16 (256, 256)
+    actor-critic's outputs on the card, held against the plain versions;
+    and the backward's float32 cotangents reach the float32 parameters
+    through the cast."""
+    from surreal_tpu_torch.models.actor_critic import PPOActorCritic
+
+    N, A = 4096, 6
+    net = PPOActorCritic(17, A, (256, 256), generator=torch.Generator().manual_seed(0),
+                         compute_dtype=torch.bfloat16).to(cuda_device)
+    g = torch.Generator().manual_seed(1)
+    f = lambda *s: torch.randn(*s, generator=g).to(cuda_device)  # noqa: E731
+    mean, log_std, value = net(f(N, 17))
+    assert mean.dtype == log_std.dtype == value.dtype == torch.float32
+    # the old policy close to the network's, as after a rollout of it
+    mean_old = mean.detach() + 0.1 * f(N, A)
+    log_std_old = (log_std.detach() + 0.05).expand(N, A).contiguous()
+    action = mean_old + torch.exp(log_std_old) * f(N, A)
+    z = (action - mean_old) * torch.exp(-log_std_old)
+    logp_old = -0.5 * (z * z + np.log(2 * np.pi)).sum(-1) - log_std_old.sum(-1)
+    rest = (action, logp_old, mean_old, log_std_old, f(N), f(N), value.detach() + 0.1 * f(N))
+    _check_loss_kernels((mean.detach(), log_std.detach(), value.detach(), *rest),
+                        torch.ones((), device=cuda_device))
+    loss, _ = plk.fused_clip_loss(mean, log_std, value, *rest, clip_eps=0.2, value_coef=0.5,
+                                  entropy_coef=0.01)
+    loss.backward()
+    assert all(p.grad is not None and p.grad.dtype == torch.float32 for p in net.parameters())
+
+
 def test_fused_autograd_on_card_matches_cpu(cuda_device):
     batch = _loss_batch(512, 6, "cpu", False)
 

@@ -241,9 +241,8 @@ def test_trainer_evaluate_and_refused_options():
         assert out["episodes"] == 3 and all(np.isfinite(v) for v in out.values())
     policy, zf = tr.deterministic_policy()
     assert policy(tr.obs).shape == (4, 6) and zf is tr.state.zfilter
-    for kw in ({"mesh": object()}, {"overlap": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            PPOTrainer("cheetah-run", device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        PPOTrainer("cheetah-run", device="cpu", mesh=object())
 
 
 def test_publish_every_matches_reference():
@@ -307,3 +306,4 @@ def test_publish_every_matches_reference():
         close(jstate.params, state.net, f"learner after step {i}")
         versions.append(state.psync.version)
     assert versions == [0, 2, 2]
+
