@@ -121,7 +121,30 @@ Phases, each of which exits non-zero on failure:
      the previous call returned and to launch each loss kernel 32 times
      and GAE never, each timed beside one iteration of phase 5's fused
      step, in turns;
- 20. the profiler checks of the PPO slice: times one more iteration split
+ 20. the host bridges: which of gymnasium, mujoco and dm_control this
+     machine has (importlib's find_spec). A phase below that needs a
+     missing one prints {"phase": ..., "ran": false, "missing": ...} and
+     does nothing else;
+ 21. PPO on a pre-built `make_env("cheetah-run")` instance at bench.py's
+     configuration for one iteration, bit for bit the iteration of the
+     trainer built from the name with the same seed, with the loss kernels
+     32 + 32 times and GAE never (from the counters);
+ 22. (gymnasium) PPO on gym:Pendulum-v1 at bench.py's widths (256 envs,
+     (256, 256), horizon 128, 4 x 8 minibatches of 4096 rows, fused, A = 1)
+     for 2 iterations: the counters as in phase 5, s/iteration,
+     env-steps/s, ms per control step split into the gymnasium step on the
+     host, the action's copy to the host, the results' copy to the card and
+     the policy; one update of its trajectory on the card against the CPU
+     (1e-5); and the CLI on the same name for 2 iterations with a
+     checkpoint each and an evaluation, then `eval`;
+ 23. (mujoco, dm_control) the batched MuJoCo oracle built from
+     native/mujoco_batch.cpp: 256 cheetah envs from the port's start states
+     under 100 control steps of common actions, the oracle's ms per control
+     step on the host and the drift of the port's engine on the card
+     (float32) from it (float64) after each step;
+ 24. (mujoco, dm_control) one 'mujoco' eval GIF (dm_control's GL frames,
+     MUJOCO_GL=egl unless set) of 8 steps, read back;
+ 25. the profiler checks of the PPO slice: times one more iteration split
      into rollout and update, profiles another for the device's idle share,
      and profiles one minibatch step of the update for its loss kernels (2:
      one forward, one backward), a forward and a backward of
@@ -129,21 +152,21 @@ Phases, each of which exits non-zero on failure:
      device kernel each). torch.profiler stays attached to the process once
      used and slows every later launch, so it comes last and nothing is
      timed after it;
- 21. profiles the DDPG cell (one rollout, one update block), the recurrent
+ 26. profiles the DDPG cell (one rollout, one update block), the recurrent
      PPO cell (a rollout of 16 steps, one epoch of 8 minibatch steps) and
      the finger-spin cell (a rollout of 4 steps, one epoch of 4 minibatch
      steps) for their device kernels and device busy time, held against the
      unprofiled times of the same parts from phases 7, 8 and 11;
- 22. profiles one render call per task of phase 13 and the pixel PPO cell
+ 27. profiles one render call per task of phase 13 and the pixel PPO cell
      (a rollout of 2 decision steps, one epoch of 8 minibatch steps, the
      epoch in float32 and in bfloat16): device kernels per decision step,
      the render's share of the rollout's device time, the idle shares, each
      epoch's kernels with the most device time.
-Phases 6 to 9, 11, 12, 14 to 19, 21 and 22 print one JSON object each
-(three in phase 21), phases 10 and 13 one per task. The whole run's time
+Phases 6 to 9, 11, 12, 14 to 24, 26 and 27 print one JSON object each
+(three in phase 26), phases 10 and 13 one per task. The whole run's time
 follows; the line before the card's is a JSON object with one entry per
 kernel (GAE, on no trainer path since the reference's default is the XLA
-scan, is still held by phases 3, 4 and 20); the last line is {"ok": true,
+scan, is still held by phases 3, 4 and 25); the last line is {"ok": true,
 "device": {...}}.
 
 With --loss-timing, only phase 1 and the autograd timing of phase 3 run,
@@ -2224,6 +2247,297 @@ def phase_overlap(dev, fused_trainer):
     return launches
 
 
+BRIDGES = ("gymnasium", "mujoco", "dm_control")
+FLAGSHIP = dict(horizon=128, epochs=4, num_minibatches=8, lr=3e-4, fused_loss=True)
+GYM_TASK = "gym:Pendulum-v1"  # Pendulum-v1: 3 observations, A = 1, 200-step episodes
+
+
+def phase_host_bridges() -> dict:
+    """Which host-bridge packages this machine has; the phases that need a
+    missing one print that they did not run and do nothing else."""
+    import importlib.util
+
+    found = {p: importlib.util.find_spec(p) is not None for p in BRIDGES}
+    print(json.dumps({"phase": "host_bridges", **found}))
+    return found
+
+
+def bridge_missing(phase: str, found: dict, needs: tuple) -> bool:
+    missing = [p for p in needs if not found[p]]
+    if missing:
+        print(json.dumps({"phase": phase, "ran": False, "missing": ", ".join(missing)}))
+    return bool(missing)
+
+
+def phase_ppo_instance(dev) -> dict:
+    """PPOTrainer on a pre-built `make_env("cheetah-run")` instance at
+    bench.py's configuration: one iteration, which must equal one of the
+    trainer built from the name and the same seed bit for bit (the same
+    generator draws give the same trajectory and update), with 32 + 32
+    loss launches and GAE 0 from the counters."""
+    from surreal_tpu_torch.algos.ppo import PPOConfig
+    from surreal_tpu_torch.envs import make_env
+    from surreal_tpu_torch.train import PPOTrainer
+
+    kernels = path_kernels()
+    cfg = PPOConfig(**FLAGSHIP)
+    common = dict(num_envs=256, hidden=(256, 256), seed=0, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    inst = PPOTrainer(make_env("cheetah-run", device=dev), cfg, **common)
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = inst.run(1, log_every=1)[-1]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    named = PPOTrainer("cheetah-run", cfg, **common)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    named.run(1, log_every=1)
+    torch.cuda.synchronize()
+    sec_named = time.perf_counter() - t0
+    unequal = unequal_leaves(inst.full_state, named.full_state)
+    out = {"phase": "ppo_instance_cheetah", "kernel_launches": launches,
+           "s_per_iteration": sec, "env_steps_per_s": inst.steps_per_iteration / sec,
+           "s_per_iteration_named": sec_named, "bit_equal_to_named": not unequal,
+           "max_memory_allocated": peak, "peak_above_held_before": peak - held_before}
+    print(json.dumps(out))
+    check_finite("PPO on an env instance", m)
+    want = {"gae": 0, "ppo_loss_fwd": 32, "ppo_loss_bwd": 32}
+    if launches != want:
+        fail(f"the instance path launched {launches}, expected {want}")
+    if unequal:
+        fail(f"the instance trainer differs from the named one at {unequal[:5]}")
+    return launches
+
+
+def timed_gym_env(env, acc: dict) -> None:
+    """Wraps the GymEnv's host round trip, so each part of a control step is
+    timed on the host clock: the action's copy to the host (after a
+    synchronize, so the policy's device work is not counted in it), the
+    gymnasium step, and the copy of its results to the card (until they
+    have arrived)."""
+    def wrap(name, fn, before=None):
+        def run(*args):
+            if before:
+                before()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if name == "h2d_ms":
+                torch.cuda.synchronize()
+            acc[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    env._to_host = wrap("d2h_ms", env._to_host, torch.cuda.synchronize)
+    env._host_step = wrap("gym_step_ms", env._host_step)
+    env._to_device = wrap("h2d_ms", env._to_device)
+
+
+def phase_ppo_gym(dev, found: dict) -> dict | None:
+    """PPOTrainer("gym:Pendulum-v1") at bench.py's widths (256 envs,
+    (256, 256), horizon 128, 4 x 8 minibatches of 4096 rows, fused; A = 1)
+    for 2 iterations: the loss kernels 32 + 32 times an iteration and GAE
+    never, s/iteration, env-steps/s, ms per control step split into the
+    gymnasium step on the host, the action's copy to the host, the results'
+    copy to the card and the policy (the rest of the rollout); one update of
+    its last trajectory on the card against the CPU's; then the CLI on the
+    same name for 2 iterations, a checkpoint each and an evaluation of 16
+    episodes (on envs of their own), and `eval` of the checkpoint."""
+    if bridge_missing("ppo_gym_pendulum", found, ("gymnasium",)):
+        return None
+    from surreal_tpu_torch.algos import ppo
+    from surreal_tpu_torch.models.actor_critic import PPOActorCritic
+    from surreal_tpu_torch.train import PPOTrainer
+
+    kernels = path_kernels()
+    cfg = ppo.PPOConfig(**FLAGSHIP)
+    t_phase = time.perf_counter()
+    t = PPOTrainer(GYM_TASK, cfg, num_envs=256, hidden=(256, 256), seed=0, device=dev)
+    acc = {"gym_step_ms": 0.0, "d2h_ms": 0.0, "h2d_ms": 0.0}
+    timed_gym_env(t.env, acc)
+    rollout, trajs, rollout_s = ppo.rollout, [], []
+
+    def timed_rollout(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rollout(*a, **k)
+        torch.cuda.synchronize()
+        rollout_s.append(time.perf_counter() - t0)
+        trajs.append(res[0])
+        return res
+
+    for k in kernels.values():
+        k.launches = 0
+    times = []
+    ppo.rollout = timed_rollout
+    try:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = t.run(1, log_every=1)[-1]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check_finite("PPO on gym:Pendulum-v1", m)
+    finally:
+        ppo.rollout = rollout
+    launches = {n: k.launches for n, k in kernels.items()}
+    steps = 2 * cfg.horizon
+    per_step = {k: v / steps for k, v in acc.items()}
+    per_step["policy_ms"] = sum(rollout_s) * 1e3 / steps - sum(per_step.values())
+
+    # one update of the last trajectory, card against CPU, from the same state
+    traj, results = trajs[-1], {}
+    perms = torch.stack([torch.randperm(traj.reward.numel(), generator=torch.Generator()
+                                        .manual_seed(e)) for e in range(cfg.epochs)])
+    for d in ("cpu", dev):
+        net = PPOActorCritic(3, 1, hidden=(256, 256)).to(d)
+        net.load_state_dict(t.state.net.state_dict())
+        st = ppo.init_state(cfg, net, 3)
+        tr = ppo.Trajectory(**{k: x.to(d) for k, x in vars(traj).items()})
+        st, metrics = ppo.update(cfg, st, tr, None, perms.to(d))
+        results[d] = ({k: p.detach().cpu() for k, p in net.named_parameters()},
+                      {k: float(x) for k, x in metrics.items()})
+    p_err = max((results["cpu"][0][k] - results[dev][0][k]).abs().max().item()
+                for k in results["cpu"][0])
+    m_err = max(abs(results["cpu"][1][k] - results[dev][1][k])
+                / max(1.0, abs(results["cpu"][1][k])) for k in results["cpu"][1])
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_gym_cli_")
+    try:
+        exp = os.path.join(root, "gym")
+        for k in kernels.values():
+            k.launches = 0
+        with LogLines() as lines:
+            t0 = time.perf_counter()
+            cli_stdout(["train", "ppo", "--env.env_name", GYM_TASK, "--learner.fused_loss",
+                        "true", "--session.total_env_steps", str(2 * CHEETAH_ITER),
+                        "--session.eval_every_steps", str(2 * CHEETAH_ITER),
+                        "--session.checkpoint_every_steps", str(CHEETAH_ITER),
+                        "--session.results_dir", root, "--session.experiment_name", "gym",
+                        "--device", str(dev)])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+        cli_launches = {n: k.launches for n, k in kernels.items()}
+        ckpts = sorted(int(s) for s in os.listdir(os.path.join(exp, "checkpoints", "latest"))
+                       if s.isdigit())
+        ev = json.loads(cli_stdout(["eval", "--experiment", exp, "--episodes", "16",
+                                    "--device", str(dev)]).strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    mean = sum(times) / len(times)
+    out = {"phase": "ppo_gym_pendulum", "ran": True, "kernel_launches": launches,
+           "s_per_iteration": times, "env_steps_per_s": t.steps_per_iteration / mean,
+           "rollout_s": rollout_s, "ms_per_control_step": per_step,
+           "update_card_vs_cpu": {"params_max_abs_err": p_err, "metrics_max_rel_err": m_err,
+                                  "tol": [1e-5, 1e-4]},
+           "cli": {"train_2_iterations_with_eval_s": cli_s, "kernel_launches": cli_launches,
+                   "checkpoints": ckpts, "evals": evals_logged(lines), "eval": ev},
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps(out))
+    want = {"gae": 0, "ppo_loss_fwd": 64, "ppo_loss_bwd": 64}
+    if launches != want or cli_launches != want:
+        fail(f"the gym path launched {launches}, its CLI run {cli_launches}: expected {want}")
+    if not (p_err <= 1e-5 and m_err <= 1e-4):
+        fail("the card's PPO update of the gym trajectory disagrees with the CPU's")
+    if ckpts != [CHEETAH_ITER, 2 * CHEETAH_ITER] or len(out["cli"]["evals"]) != 1:
+        fail(f"the gym CLI run left checkpoints {ckpts} and evals {out['cli']['evals']}")
+    if not np.isfinite(ev["return_mean"]) or ev["episodes"] != 16:
+        fail(f"eval of the gym run printed {ev}")
+    return launches
+
+
+def phase_oracle(dev, found: dict) -> None:
+    """The batched MuJoCo oracle (native/mujoco_batch.cpp, built here with
+    g++ against the installed mujoco): 256 cheetah envs stepped under 100
+    control steps of common random actions, from the port's start states
+    (resting on the ground) and from the same states lifted by 1 m (free
+    flight until they land); the oracle's ms per control step on this host,
+    and the drift of the port's engine on the card (float32) from it
+    (MuJoCo, float64) after each step: the largest over the envs and the
+    median env's (the engine's contacts and limits are not MuJoCo's soft
+    constraints; away from them it agrees with MuJoCo to rounding)."""
+    if bridge_missing("oracle_cheetah", found, ("mujoco", "dm_control")):
+        return
+    from surreal_tpu_torch.envs import make_env
+    from surreal_tpu_torch.envs.oracle import BatchedOracle, library_path
+
+    B, steps = 256, 100
+    t0 = time.perf_counter()
+    library_path()
+    out = {"phase": "oracle_cheetah", "ran": True, "num_envs": B, "control_steps": steps,
+           "build_s": time.perf_counter() - t0}
+    env = make_env("cheetah-run", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, _ = env.reset(B, gen)
+    actions = torch.rand(steps, B, env.action_dim, generator=gen, device=dev) * 2 - 1
+    ctrl = actions.double().cpu().numpy()
+    oracle = BatchedOracle.for_domain("cheetah", B)
+    for case, lift in (("resting", 0.0), ("lifted_1m", 1.0)):
+        q, qd = state.q.clone(), state.qd
+        q[:, 1] += lift  # rootz
+        oracle.set_state(q.double().cpu().numpy(), qd.double().cpu().numpy())
+        oracle_ms, engine_ms, drift_q, drift_q_median, drift_qd = [], [], [], [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            oracle.step(ctrl[i])
+            oracle_ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            q, qd = env._physics_step(q, qd, actions[i])
+            torch.cuda.synchronize()
+            engine_ms.append((time.perf_counter() - t0) * 1e3)
+            oq, oqd = oracle.get_state()
+            per_env = np.abs(q.double().cpu().numpy() - oq).max(1)
+            drift_q.append(float(per_env.max()))
+            drift_q_median.append(float(np.median(per_env)))
+            drift_qd.append(float(np.abs(qd.double().cpu().numpy() - oqd).max()))
+        out[case] = {"oracle_ms_per_control_step": float(np.median(oracle_ms)),
+                     "engine_ms_per_control_step": float(np.median(engine_ms)),
+                     "drift_q_max_abs": drift_q, "drift_q_median_env": drift_q_median,
+                     "drift_qd_max_abs": drift_qd}
+        if not (np.isfinite(drift_q).all() and np.isfinite(drift_qd).all()):
+            fail(f"the oracle or the engine went non-finite on cheetah ({case})")
+    oracle.close()
+    print(json.dumps(out))
+
+
+def phase_video_mujoco(dev, found: dict, trainer) -> None:
+    """One 'mujoco' GIF (dm_control's GL frames of the recorded states) of 8
+    steps of the PPO slice's deterministic policy, written by the port's
+    writer, read back and held against the frames of the same states."""
+    if bridge_missing("video_mujoco", found, ("mujoco", "dm_control")):
+        return
+    from surreal_tpu_torch.train import video
+
+    policy_fn, zf = trainer.deterministic_policy()
+    root = tempfile.mkdtemp(prefix="chip_smoke_video_")
+    try:
+        path = os.path.join(root, "mujoco.gif")
+        t0 = time.perf_counter()
+        ret = video.record_video(trainer.env, policy_fn, path, steps=8, zfilter=zf,
+                                 backend="mujoco", size=64)
+        record_s = time.perf_counter() - t0
+        frames = video.read_gif(path)
+        qs, _ = video.rollout_states(trainer.env, policy_fn, 8, zfilter=zf)
+        want = video._mujoco_frames(trainer.env, qs, 64)
+        gif_bytes = os.path.getsize(path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    err = int(np.abs(frames.astype(np.int16) - want.astype(np.int16)).max())
+    out = {"phase": "video_mujoco", "ran": True, "frames": list(frames.shape),
+           "gif_bytes": gif_bytes, "record_s": record_s, "max_grey_level_error": err,
+           "tol": video.PALETTE_ERROR, "return": ret}
+    print(json.dumps(out))
+    if frames.shape != (8, 64, 64, 3) or err > video.PALETTE_ERROR or len(np.unique(want)) < 5:
+        fail(f"the 'mujoco' GIF is {frames.shape}, {err} levels from its frames, or blank")
+
+
 CHEETAH_ITER = 256 * 128  # env steps per iteration of the cheetah-run PPO recipe
 # --learn's tasks: the recipe's flags after `train ppo`, env steps per
 # iteration, the bar, and the evidence's final 32-episode deterministic
@@ -2683,6 +2997,12 @@ def main():
     bf16_launches = phase_bf16(dev)[1]
     phase_bf16_parity(dev)
     overlap_launches = phase_overlap(dev, trainer)
+    found = phase_host_bridges()
+    os.environ.setdefault("MUJOCO_GL", "egl")  # dm_control picks its GL platform when imported
+    instance_launches = phase_ppo_instance(dev)
+    gym_launches = phase_ppo_gym(dev, found)
+    phase_oracle(dev, found)
+    phase_video_mujoco(dev, found, trainer)
     breakdown(trainer)
     new_cells_profile(ddpg_trainer, ddpg_times, lstm_trainer, lstm_times)
     finger_profile(finger_trainer, finger_times)
@@ -2697,8 +3017,11 @@ def main():
                    "ddpg_pixel_ball_in_cup": pixel_ddpg_launches[name],
                    "cli_ppo_pixel_cheetah": cli_pixel_launches[name],
                    "ppo_bf16": bf16_launches[name], "ppo_overlap": overlap_launches[name],
-                   "cli_ppo_cartpole_bf16_overlap": cli_bf16_launches[name]}
-        k["launches"] = sum(by_path.values())
+                   "cli_ppo_cartpole_bf16_overlap": cli_bf16_launches[name],
+                   "ppo_instance": instance_launches[name],
+                   # None: gymnasium is missing, so the path was not driven
+                   "ppo_gym": None if gym_launches is None else gym_launches[name]}
+        k["launches"] = sum(v for v in by_path.values() if v is not None)
         k["launches_by_path"] = by_path
         for extra in ("tol", "bytes", "call_ms", "plain_call_ms"):
             k.pop(extra)

@@ -49,19 +49,15 @@ def _parse_overrides(unknown: list[str]) -> dict:
     return out.to_dict()
 
 
-def _check_ported(learner: Config, env_cfg: Config, session: Config) -> None:
+def _check_ported(session: Config) -> None:
     """Raises NotImplementedError, naming its ROADMAP.md Queue A item, for a
     configuration whose path the port does not have yet."""
-    missing = []
-    if str(env_cfg.env_name).startswith("gym:"):
-        missing.append("gym: host-loop adapters (A16)")
     m = session.mesh
     if (not (m.data is None and int(m.model) == 1 and int(m.time) == 1)
             or any(v is not None for v in session.multihost.values())):
-        missing.append("session.mesh and session.multihost other than one device (A15)")
-    if missing:
         raise NotImplementedError(
-            "not ported yet (ROADMAP.md, Queue A): " + "; ".join(missing))
+            "not ported yet (ROADMAP.md, Queue A): session.mesh and session.multihost "
+            "other than one device (A15)")
 
 
 def _build_trainer(learner: Config, env_cfg: Config, session: Config, device: str):
@@ -91,7 +87,7 @@ def _build_trainer(learner: Config, env_cfg: Config, session: Config, device: st
 
 def cmd_train(algo: str, overrides: dict, device: str = "cuda") -> int:
     learner, env_cfg, session = generate_configs(algo, overrides)
-    _check_ported(learner, env_cfg, session)
+    _check_ported(session)
     log = get_logger("cli")
 
     exp_dir = os.path.join(session.results_dir, session.experiment_name)
@@ -184,7 +180,7 @@ def cmd_eval(experiment: str, best: bool, episodes: int, stochastic: bool,
     learner = Config(saved["learner"])
     env_cfg = Config(saved["env"])
     session = Config(saved["session"])
-    _check_ported(learner, env_cfg, session)
+    _check_ported(session)
     trainer = _build_trainer(learner, env_cfg, session, device)
     ckpt = Checkpointer(os.path.join(experiment, "checkpoints"))
     trainer.load_full_state(ckpt.restore(trainer.full_state, best=best))

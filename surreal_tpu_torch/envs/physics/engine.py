@@ -181,8 +181,8 @@ def mass_matrix(m: PlanarModel, q: Tensor, fkd: FK | None = None) -> Tensor:
     mass = m.tensor("mass", q)
     M = torch.einsum("b,nbcj,nbck->njk", mass, Jv, Jv)
 
-    def rot_inertia():  # q-independent: Σ_b I_b J_ωᵀJ_ω + diag(armature), in f32
-        f = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32)
+    def rot_inertia():  # q-independent: Σ_b I_b J_ωᵀJ_ω + diag(armature), in q's dtype
+        f = lambda x: torch.as_tensor(np.asarray(x), dtype=q.dtype)
         Jw = f(_ancestor_dof_mask(m)) * f(_hinge_sign(m))[None, :]
         return (torch.einsum("b,bj,bk->jk", f(m.inertia), Jw, Jw)
                 + torch.diag(f(m.armature))).numpy()
@@ -209,7 +209,7 @@ def bias_forces(m: PlanarModel, q: Tensor, qd: Tensor, fkd: FK | None = None,
     G = G * mask[None, :, :, None]
     gamma = torch.einsum("nbvc,nv->nbc", G, qd)
     g_vec = m.tensor("gravity_vec", q,
-                     lambda: np.stack([np.zeros(m.nb), np.full(m.nb, np.float32(m.gravity))], -1))
+                     lambda: np.stack([np.zeros(m.nb), np.full(m.nb, m.gravity)], -1))
     f = m.tensor("mass", q)[None, :, None] * (gamma + g_vec)
     return torch.einsum("nbcv,nbc->nv", Jv, f)
 

@@ -1,5 +1,7 @@
 """`make_env` dispatch (port of surreal_tpu/envs/registry.py): the same 26
-names. Names accept "domain-task" and the "dm_control:domain-task" form."""
+names. Names accept "domain-task" and the "dm_control:domain-task" form;
+"gym:<env_id>" builds a batch of gymnasium envs (`GymEnv`, which takes
+`num_envs`)."""
 
 from __future__ import annotations
 
@@ -72,9 +74,10 @@ def register(name: str, factory: Callable[..., Environment]) -> None:
 def make_env(name: str, **kwargs) -> Environment:
     """Builds the named env; `device` (default "cuda") and `dtype` go to it."""
     _ensure_builtin()
-    if name.startswith("gym:"):
-        raise NotImplementedError(
-            "gym: host-loop adapters are not ported yet (ROADMAP.md, Queue A 16)")
+    if name.startswith("gym:"):  # "gym:<env_id>": the host-loop adapter
+        from surreal_tpu_torch.envs.gym_adapter import GymEnv
+
+        return GymEnv(name.split(":", 1)[1], **kwargs)
     key = name.split(":", 1)[-1]  # strip a "dm_control:" style prefix
     if key not in _REGISTRY:
         raise KeyError(f"Unknown env {name!r}; available: {sorted(_REGISTRY)}")

@@ -10,6 +10,7 @@ from typing import Callable
 import torch
 
 from surreal_tpu_torch.envs import base as env_base
+from surreal_tpu_torch.envs.gym_adapter import GymEnv
 from surreal_tpu_torch.models.z_filter import ZFilterState, zfilter_normalize
 
 
@@ -20,8 +21,25 @@ def evaluate_policy(env: env_base.Environment, policy_fn: Callable,
     """policy_fn(obs, generator[, pstate]) -> action | (action, pstate); the
     policy closes over its network. Runs `episodes` parallel envs, on the
     env's device, for one full episode each; returns the mean, std, min and
-    max of their returns."""
-    flatten = flatten or env_base.flatten_obs
+    max of their returns.
+
+    A `GymEnv` holds its episodes in gymnasium, so the evaluation runs on a
+    new batch of `episodes` envs of the same id and seed, and the caller's
+    envs keep their episodes (the reference evaluates on the caller's env
+    itself: it fails when the widths differ and reseeds the training envs
+    when they match)."""
+    args = (policy_fn, zfilter, episodes, seed, flatten or env_base.flatten_obs,
+            init_policy_state)
+    if not isinstance(env, GymEnv):
+        return _evaluate(env, *args)
+    eval_env = env.spawn(episodes)
+    try:
+        return _evaluate(eval_env, *args)
+    finally:
+        eval_env.close()
+
+
+def _evaluate(env, policy_fn, zfilter, episodes, seed, flatten, init_policy_state) -> dict:
     stateful = init_policy_state is not None
     generator = torch.Generator(device=env.device).manual_seed(seed)
     env_state, ts = env.reset(episodes, generator)

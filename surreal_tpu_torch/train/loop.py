@@ -13,6 +13,7 @@ import torch
 
 from surreal_tpu_torch.algos.ppo import AdamState
 from surreal_tpu_torch.envs.base import EnvState
+from surreal_tpu_torch.envs.gym_adapter import GymEnv
 from surreal_tpu_torch.models.z_filter import ZFilterState
 from surreal_tpu_torch.utils import guards
 
@@ -20,9 +21,10 @@ log = logging.getLogger("surreal_tpu_torch.train")
 
 
 class Trainer:
-    """A trainer sets `device`, `generator`, `env_state`, `obs`, `ep_ret`,
-    `global_iter`, `steps_per_iteration` and `debug_checks`, and implements
-    `_iterate` and `full_state` / `load_full_state`."""
+    """A trainer sets `device`, `env`, `_flatten`, `generator`, `env_state`,
+    `obs`, `ep_ret`, `global_iter`, `steps_per_iteration` and
+    `debug_checks`, and implements `_iterate` and `full_state` /
+    `load_full_state`."""
 
     default_log_every = 10
     device: torch.device
@@ -38,8 +40,9 @@ class Trainer:
 
     @property
     def full_state(self) -> dict:
-        """Everything a resumed run needs to continue as if never stopped:
-        a nested dict of tensors and Python scalars (`train.checkpoint`)."""
+        """Everything a resumed run needs to continue as if never stopped
+        (but the episodes of host envs, which restart from their seed): a
+        nested dict of tensors and Python scalars (`train.checkpoint`)."""
         raise NotImplementedError
 
     def load_full_state(self, fs: dict) -> None:
@@ -55,12 +58,19 @@ class Trainer:
                 "global_iter": self.global_iter}
 
     def _load_run_state(self, fs: dict) -> None:
+        self.generator.set_state(fs["generator"].cpu())  # a generator's state lives on the host
+        self.global_iter = int(fs["global_iter"])
+        if isinstance(self.env, GymEnv):
+            # The host envs' state lives in gymnasium and cannot be restored:
+            # they start again from their seed, with the learner restored.
+            self.env_state, ts = self.env.reset(self.env.num_envs, self.generator)
+            self.obs = self._flatten(ts.obs)
+            self.ep_ret = torch.zeros_like(self.ep_ret)
+            return
         # the trainer's own env state (from its reset) says which kind to rebuild
         self.env_state = type(self.env_state).from_dict(fs["env_state"])
         self.obs = fs["obs"]
         self.ep_ret = fs["ep_ret"]
-        self.generator.set_state(fs["generator"].cpu())  # a generator's state lives on the host
-        self.global_iter = int(fs["global_iter"])
 
     def _iterate(self) -> dict:
         """One train step on the trainer's own state; returns its metrics

@@ -1,8 +1,9 @@
 """Single-device PPO trainer (port of surreal_tpu/train/ppo_trainer.py
-without the mesh path): builds the env batch, pixel-wrapped or not, and the
-network, feed-forward or recurrent, in its compute dtype, then runs train
-steps, fused or overlapped (`overlap`: the update of iteration k consumes
-the trajectory of iteration k - 1)."""
+without the mesh path): builds the env batch from a name (a "gym:" name
+gets `num_envs` as its default env kwarg) or takes a pre-built env,
+pixel-wrapped or not, and the network, feed-forward or recurrent, in its
+compute dtype, then runs train steps, fused or overlapped (`overlap`: the
+update of iteration k consumes the trajectory of iteration k - 1)."""
 
 from __future__ import annotations
 
@@ -29,8 +30,9 @@ from surreal_tpu_torch.train.loop import (
 
 
 class PPOTrainer(Trainer):
-    def __init__(self, env_name: str, cfg: ppo.PPOConfig | None = None, num_envs: int = 256,
-                 seed: int = 0, hidden=(64, 64), device: str | torch.device | None = None,
+    def __init__(self, env_name: str | env_base.Environment, cfg: ppo.PPOConfig | None = None,
+                 num_envs: int = 256, seed: int = 0, hidden=(64, 64),
+                 device: str | torch.device | None = None,
                  compute_dtype: str | torch.dtype = torch.float32,
                  pixel_obs: bool = False, pixel_kwargs: dict | None = None,
                  use_lstm: bool = False, lstm_size: int = 128, env_kwargs: dict | None = None,
@@ -43,7 +45,13 @@ class PPOTrainer(Trainer):
         self._pending = None  # overlap: the trajectory awaiting its update
         cfg = cfg or ppo.PPOConfig()
         self.device = resolve_device(device)
-        self.env = make_env(env_name, device=self.device, **(env_kwargs or {}))
+        if isinstance(env_name, str):
+            env_kwargs = dict(env_kwargs or {})
+            if env_name.startswith("gym:"):
+                env_kwargs.setdefault("num_envs", num_envs)
+            self.env = make_env(env_name, device=self.device, **env_kwargs)
+        else:  # a pre-built Environment instance (physics-variant probes)
+            self.env = env_name
         if pixel_obs:
             self.env = PixelWrapper(self.env, **(pixel_kwargs or {}))
             self._flatten = pixel_flatten_obs

@@ -1,10 +1,11 @@
 """Evaluation videos (port of surreal_tpu/train/video.py).
 
 One env runs under the deterministic policy; its states are rendered by
-the rasteriser (`backend='raster'`) and written as an animated GIF. The
-GIF89a file is written here, with a fixed palette and LZW, so no imaging
-package is needed. The reference's 'mujoco' backend replays the states
-through dm_control's GL renderer on the host: a host bridge, not ported.
+the rasteriser (`backend='raster'`) or replayed through dm_control's GL
+renderer on the host (`backend='mujoco'`: cheetah, walker and cartpole;
+mujoco and dm_control are imported there), and written as an animated GIF.
+The GIF89a file is written here, with a fixed palette and LZW, so no
+imaging package is needed.
 """
 
 from __future__ import annotations
@@ -194,18 +195,38 @@ def record_video(env, policy_fn: Callable, path: str, steps: int = 400, seed: in
                  size: int = 168) -> float:
     """Records a deterministic-policy rollout to an animated GIF at `path`;
     returns the summed reward over the recorded steps."""
-    if backend == "mujoco":
-        raise NotImplementedError(
-            "the 'mujoco' video backend replays through dm_control on the host, a host "
-            "bridge that is not ported yet (ROADMAP.md, Queue A, A16)")
-    if backend != "raster":
+    if backend not in ("raster", "mujoco"):
         raise ValueError(backend)
     qs, ret = rollout_states(env, policy_fn, steps, seed, zfilter, flatten)
     base_env = getattr(env, "env", env)  # unwrap PixelWrapper
-    render = make_renderer(base_env.model, size, size)
-    q = torch.as_tensor(qs, device=env.device)
-    with torch.no_grad():
-        frames = np.concatenate([render(q[i:i + _RENDER_CHUNK]).cpu().numpy()
-                                 for i in range(0, len(q), _RENDER_CHUNK)])
+    if backend == "raster":
+        render = make_renderer(base_env.model, size, size)
+        q = torch.as_tensor(qs, device=env.device)
+        with torch.no_grad():
+            frames = np.concatenate([render(q[i:i + _RENDER_CHUNK]).cpu().numpy()
+                                     for i in range(0, len(q), _RENDER_CHUNK)])
+    else:
+        frames = _mujoco_frames(base_env, qs, size)
     save_gif(frames, path)
     return ret
+
+
+def _mujoco_frames(env, qs: np.ndarray, size: int) -> np.ndarray:
+    """Ground-truth GL rendering: the q trajectory replayed in dm_control's
+    physics (mj_forward per state), camera 0, (N, size, size, 3) uint8.
+    Renders through EGL unless MUJOCO_GL says otherwise."""
+    os.environ.setdefault("MUJOCO_GL", "egl")
+    import mujoco
+    from dm_control import suite
+
+    domain = type(env).__module__.rsplit(".", 1)[-1]
+    name_map = {"cheetah": ("cheetah", "run"), "walker": ("walker", "walk"),
+                "cartpole": ("cartpole", "balance")}
+    denv = suite.load(*name_map[domain])
+    denv.reset()
+    frames = []
+    for q in qs:
+        denv.physics.data.qpos[:] = q
+        mujoco.mj_forward(denv.physics.model._model, denv.physics.data._data)
+        frames.append(denv.physics.render(size, size, camera_id=0))
+    return np.stack(frames)

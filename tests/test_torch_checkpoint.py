@@ -4,7 +4,7 @@ run saved, loaded into a fresh trainer built with another seed and
 continued equals the uninterrupted run bit for bit, for PPO with the fused
 loss, LSTM-PPO with a stale actor snapshot and in bfloat16, DDPG past its replay warm-up,
 and pixel PPO and pixel DDPG (shared encoder, random shift), whose frame
-stacks are part of the state."""
+stacks are part of the state; and what a resumed gym run restores."""
 
 import json
 import os
@@ -169,3 +169,36 @@ def test_resume_is_bitwise_the_uninterrupted_run(tmp_path, kind):
     if kind.startswith("pixel"):
         assert straight.full_state["env_state"]["stack"].dtype == torch.uint8
         assert straight.full_state["env_state"]["stack"].shape == (4, 48, 48, 3)
+
+
+def test_resumed_gym_run_restores_the_learner_not_the_envs(tmp_path):
+    """A gym run's checkpoint holds the zero-width env state (torch.save
+    takes it; orbax refuses it in the reference). A resumed run restores the
+    learner: the network, Adam, the Z-filter, the KL and LR adaptation, the
+    counters and the generator. The host envs' state lives in gymnasium and
+    cannot be restored: they restart from their seed, so the resumed run is
+    not the uninterrupted one."""
+    pytest.importorskip("gymnasium")
+
+    def make(seed):
+        return PPOTrainer("gym:Pendulum-v1", PPOConfig(horizon=8, epochs=2, num_minibatches=2),
+                          num_envs=4, seed=seed, hidden=(16, 16), device="cpu")
+
+    first = make(0)
+    first.run(3, log_every=3)  # 24 steps into the first episodes
+    ck = Checkpointer(str(tmp_path / "ck"))
+    ck.save(3, first.full_state)
+    saved = ck.restore(first.full_state)
+    assert saved["env_state"]["q"].shape == (4, 0)
+    resumed = make(123)
+    resumed.load_full_state(ck.restore(resumed.full_state))
+    fs = resumed.full_state
+    for key in ("net", "opt", "zfilter", "kl_beta", "lr_scale", "update_step", "generator",
+                "global_iter"):
+        _assert_equal_states(fs[key], saved[key])
+    assert torch.equal(resumed.obs, make(0).obs)  # the seeded reset's observations
+    assert not torch.equal(resumed.obs, saved["obs"])
+    assert torch.equal(resumed.ep_ret, torch.zeros(4)) and saved["ep_ret"].abs().sum() > 0
+    first.run(1, log_every=1)
+    resumed.run(1, log_every=1)
+    assert not torch.equal(first.obs, resumed.obs)

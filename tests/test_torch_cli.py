@@ -137,7 +137,6 @@ def test_envs_lists_the_registry(capsys):
     (["--session.mesh.data", "2"], "A15"),
     (["--session.mesh.model", "2"], "A15"),
     (["--session.multihost.num_processes", "2"], "A15"),
-    (["--env.env_name", "gym:Pendulum-v1"], "A16"),
 ], ids=lambda x: x if isinstance(x, str) else "_".join(x))
 def test_unported_knobs_raise_naming_their_item(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -244,3 +243,52 @@ def test_module_run_imports_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().splitlines()[-1] == "[]"
     assert "eval @ 6.40e+01 steps" in out.stderr
+
+
+GYM = ["--env.env_name", "gym:Pendulum-v1", "--env.num_envs", "8"]
+
+
+def _gym_argv(tmp_path, name, total_steps, eval_episodes, *extra):
+    return ["train", "ppo", *GYM, *TINY["ppo"], "--session.total_env_steps", str(total_steps),
+            "--session.eval_every_steps", str(total_steps),
+            "--session.checkpoint_every_steps", "64", "--session.eval_episodes",
+            str(eval_episodes), "--session.results_dir", str(tmp_path),
+            "--session.experiment_name", name, *extra]
+
+
+def test_gym_run_to_its_end(tmp_path, capsys, log_lines):
+    """train ppo on a gymnasium env runs to its end: training, a checkpoint
+    of the zero-width env state each iteration, an evaluation of 2 episodes
+    beside the 8 training envs; then a resumed run and `eval`."""
+    pytest.importorskip("gymnasium")
+    assert main([*_gym_argv(tmp_path, "g", 128, 2), "--device", "cpu"]) == 0
+    exp = tmp_path / "g"
+    assert _latest_steps(exp) == [64, 128]
+    assert os.listdir(exp / "checkpoints" / "best") == ["128"]
+    state = torch.load(exp / "checkpoints" / "latest" / "128" / "state.pt", weights_only=True)
+    assert state["env_state"]["q"].shape == (8, 0) and state["global_iter"] == 2
+    evals = [m for m in log_lines if m.startswith("eval @")]
+    assert len(evals) == 1 and math.isfinite(float(evals[0].split(": ")[1].split(" ")[0]))
+    assert main([*_gym_argv(tmp_path, "g", 256, 2), "--device", "cpu"]) == 0
+    assert [m for m in log_lines if "resumed from checkpoint @ 128" in m]
+    assert max(_latest_steps(exp)) == 256
+    capsys.readouterr()
+    assert main(["--device", "cpu", "eval", "--experiment", str(exp), "--episodes", "3"]) == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["episodes"] == 3 and math.isfinite(result["return_mean"])
+
+
+@pytest.mark.parametrize("eval_episodes,error,match", [
+    (2, TypeError, "incompatible shapes for broadcasting"),
+    (8, ValueError, "zero size"),
+], ids=["eval_width", "checkpoint"])
+def test_reference_cli_fails_a_gym_run(tmp_path, eval_episodes, error, match):
+    """The reference's CLI on the same gym run: its evaluation runs on the
+    trainer's own 8-wide GymEnv and fails at another width; at the same
+    width it reaches the checkpoint, where orbax refuses the zero-width env
+    state. The port repairs both (test_gym_run_to_its_end)."""
+    pytest.importorskip("gymnasium")
+    from surreal_tpu.cli.main import main as ref_main
+
+    with pytest.raises(error, match=match):
+        ref_main(_gym_argv(tmp_path, "ref", 64, eval_episodes))

@@ -46,7 +46,8 @@ def test_step_with_auto_reset_matches_reference(cache, name):
 
 def test_registry_matches_reference():
     """The same 26 names; every one builds on the CPU with the reference's
-    specs; a gym: name is refused."""
+    specs; a gym: name builds the gymnasium adapter, with the reference's
+    specs, and needs num_envs as the reference's does."""
     assert available_envs() == jregistry.available_envs()
     for name in available_envs():
         env, ref = make_env(name, device="cpu"), jregistry.make_env(name)
@@ -55,7 +56,14 @@ def test_registry_matches_reference():
         assert {k: s.shape for k, s in env.obs_spec().items()} == {
             k: s.shape for k, s in ref.obs_spec().items()}, name
     assert type(make_env("dm_control:walker-walk", device="cpu")).__name__ == "Walker"
-    with pytest.raises(NotImplementedError, match="Queue A 16"):
-        make_env("gym:Pendulum-v1", device="cpu")
     with pytest.raises(KeyError):
         make_env("walker-fly", device="cpu")
+    pytest.importorskip("gymnasium")
+    env = make_env("gym:Pendulum-v1", num_envs=2, device="cpu")
+    ref = jregistry.make_env("gym:Pendulum-v1", num_envs=2)
+    assert type(env).__name__ == type(ref).__name__ == "GymEnv"
+    assert env.episode_steps == ref.episode_steps and env.action_dim == ref.action_dim
+    assert env.obs_spec()["observations"].shape == ref.obs_spec()["observations"].shape
+    for build in (make_env, jregistry.make_env):
+        with pytest.raises(TypeError):
+            build("gym:Pendulum-v1")
