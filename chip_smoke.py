@@ -6,6 +6,7 @@
     python3 chip_smoke.py --gae-timing [ROOT]
     python3 chip_smoke.py --gae-sweep
     python3 chip_smoke.py --learn [DIR] [cheetah-run] [CLI FLAGS]
+    python3 chip_smoke.py --dp
 
 Phases, each of which exits non-zero on failure:
   1. prints the card (nvidia-smi name, power limit) and the torch version;
@@ -162,13 +163,42 @@ Phases, each of which exits non-zero on failure:
      epoch in float32 and in bfloat16): device kernels per decision step,
      the render's share of the rollout's device time, the idle shares, each
      epoch's kernels with the most device time.
-Phases 6 to 9, 11, 12, 14 to 24, 26 and 27 print one JSON object each
+ 28-34, the data axis (A15a), run after phase 24 and before the profiles.
+     A rank is a child process (the port's parallel.mesh.spawn) that writes
+     its numbers to a JSON file; the parent checks them, and a failed or
+     hung rank fails the run. Phases 28-32 run in one pair of gloo ranks
+     sharing the card (NCCL refuses two ranks on one device):
+ 28. the flagship PPO (256 envs, 128 a rank, minibatches of 2,048 rows)
+     for 3 iterations: each rank's s per iteration, env-steps/s over both,
+     the parameters, lr_scale, kl_beta and update_step equal across ranks,
+     each loss kernel 32 times an iteration a rank and GAE never (the
+     counters set to 0 in each rank before it); then one more iteration
+     split into rollout and update, the update's all-reduces timed;
+ 29. one sharded PPO update (loss kernels on the card) and one sharded
+     block of DDPG updates, each on the card and on the CPU over the same
+     group, on each rank's own inputs: parameters within 1e-5;
+ 30. LSTM-PPO at phase 8's configuration for 2 iterations (no kernel);
+ 31. the overlapped step at phase 19's for the priming call and one more
+     (32 + 32 loss launches an iteration a rank);
+ 32. DDPG at phase 7's configuration with the recipe's ring of 999,936
+     transitions, global (3,906 steps deep, 128 envs a rank), 6
+     iterations: each rank's ring bytes, and updates from the 5th, when a
+     rank's own 128 envs have put 10,000 transitions in its shard;
+ 33. a 1-rank NCCL group on the flagship for 2 iterations, bit for bit
+     the one-device trainer's 2 from the same seed;
+ 34. `train ppo --session.mesh.data 2` through the port's CLI, as a
+     subprocess, at the cartpole-balance recipe's width: 2 iterations with
+     a checkpoint each, the same stopped after 1 and resumed, the two last
+     checkpoints equal bit for bit, config.json written once, the ranks'
+     evaluations equal, and `eval` of the checkpoint.
+Phases 6 to 9, 11, 12, 14 to 24, 26 to 34 print one JSON object each
 (three in phase 26), phases 10 and 13 one per task. The whole run's time
 follows; the line before the card's is a JSON object with one entry per
 kernel (GAE, on no trainer path since the reference's default is the XLA
 scan, is still held by phases 3, 4 and 25); the last line is {"ok": true,
 "device": {...}}.
 
+With --dp, phases 1, 2 and 28-34 run alone.
 With --loss-timing, only phase 1 and the autograd timing of phase 3 run,
 on the surreal_tpu_torch package under ROOT (default: this checkout), so
 two versions of the package can be timed in turns in one run on one card.
@@ -204,11 +234,13 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import hashlib
 import inspect
 import io
 import json
 import logging
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2952,6 +2984,521 @@ def gae_sweep():
                 print(line)
 
 
+# ---------------------------------------------------------------------------
+# Phases 28-34: the data axis (A15a), run before the profiles (25-27). A rank is a child process (the port's
+# parallel.mesh.spawn); each writes its numbers to a JSON file and the
+# parent checks them. A failed or hung rank fails the run.
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_TIMEOUT_S = 480  # a rank blocked in a collective with a failed one ends here
+DP_ITERS = {"ppo": 3, "lstm": 2, "overlap": 2, "ddpg": 6}
+
+
+def param_digest(*modules) -> str:
+    """A hash of the modules' parameters' bytes: equal iff bitwise equal."""
+    h = hashlib.sha256()
+    for module in modules:
+        for p in module.parameters():
+            h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def counts_zero(kernels: dict) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+def counts(kernels: dict) -> dict:
+    return {n: k.launches for n, k in kernels.items()}
+
+
+class AllReduceClock:
+    """Times every torch.distributed.all_reduce in a `with` block, the card
+    synchronised before and after each (gloo stages a CUDA tensor through
+    the host, so it waits for the card anyway)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.calls, self.seconds, self._orig = 0, 0.0, dist.all_reduce
+
+        def timed_all_reduce(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._orig(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        dist.all_reduce = timed_all_reduce
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce = self._orig
+
+
+def dp_timed_runs(t, iters: int) -> tuple[list, dict]:
+    """`iters` single iterations of trainer `t`, each timed on the host
+    clock with the card synchronised; the last iteration's metrics."""
+    times, m = [], None
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = t.run(1, log_every=1)[-1]
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, m
+
+
+def dp_rank_ppo(mesh) -> dict:
+    """The flagship over the mesh: 3 iterations, their launches and times,
+    then one more iteration split into rollout and update, the update's
+    all-reduces timed."""
+    from surreal_tpu_torch.algos import ppo
+    from surreal_tpu_torch.algos.ppo import PPOConfig
+    from surreal_tpu_torch.train import PPOTrainer
+
+    kernels = path_kernels()
+    cfg = PPOConfig(**FLAGSHIP)
+    torch.cuda.reset_peak_memory_stats()
+    t = PPOTrainer("cheetah-run", cfg, num_envs=256, hidden=(256, 256), seed=0, mesh=mesh)
+    counts_zero(kernels)
+    times, m = dp_timed_runs(t, DP_ITERS["ppo"])
+    launches = counts(kernels)
+    t0 = time.perf_counter()
+    traj, t.env_state, t.obs, t.ep_ret, _ = ppo.rollout(
+        cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.ep_ret, t.generator)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with AllReduceClock() as clock:
+        ppo.update(cfg, t.state, traj, t.generator, axis=mesh)
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"local_envs": t.local_envs, "rows_per_minibatch": traj.reward.numel() // 8,
+            "s_per_iteration": times, "launches": launches, "metrics": m,
+            "rollout_s": t1 - t0, "update_s": t2 - t1, "allreduce_s": clock.seconds,
+            "allreduce_calls": clock.calls, "digest": param_digest(t.state.net),
+            "lr_scale": float(t.state.lr_scale), "kl_beta": float(t.state.kl_beta),
+            "update_step": t.state.update_step,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def dp_rank_card_vs_cpu(mesh) -> dict:
+    """One sharded PPO update (the loss kernels on the card, the plain
+    versions on the CPU) and one sharded block of DDPG updates, each on the
+    card and on the CPU over the same gloo group, on this rank's own
+    synthetic inputs."""
+    from surreal_tpu_torch.algos import ddpg, ppo
+    from surreal_tpu_torch.data import replay as rp
+    from surreal_tpu_torch.models.actor_critic import PPOActorCritic
+    from surreal_tpu_torch.models.ddpg_nets import DDPGActor, DDPGCritic
+    from surreal_tpu_torch.ops import ppo_loss_kernel as plk
+
+    dev = mesh.device
+    rng = np.random.default_rng(100 + mesh.rank)
+    T, B, A = 16, 64, 6  # 1,024 rows a rank, minibatches of 256: the fused gate admits
+    cfg = ppo.PPOConfig(horizon=T, epochs=2, num_minibatches=4, fused_loss=True)
+    traj = synthetic_trajectory(T, B, A, 17, rng)
+    perms = torch.stack([torch.tensor(rng.permutation(T * B)) for _ in range(cfg.epochs)])
+    results = {}
+    before = (plk.FWD.launches, plk.BWD.launches)
+    for d in ("cpu", dev):
+        net = PPOActorCritic(17, A, hidden=(64, 64),
+                             generator=torch.Generator().manual_seed(0)).to(d)
+        st = ppo.init_state(cfg, net, 17)
+        tr = ppo.Trajectory(**{k: x.to(d) for k, x in traj.items()})
+        st, metrics = ppo.update(cfg, st, tr, None, perms.to(d), axis=mesh)
+        results[d] = ({k: p.detach().cpu() for k, p in net.named_parameters()},
+                      {k: float(x) for k, x in metrics.items()})
+    kernel_launches = [plk.FWD.launches - before[0], plk.BWD.launches - before[1]]
+    ppo_err = max((results["cpu"][0][k] - results[dev][0][k]).abs().max().item()
+                  for k in results["cpu"][0])
+    ppo_m_err = max(abs(results["cpu"][1][k] - results[dev][1][k])
+                    / max(1.0, abs(results["cpu"][1][k])) for k in results["cpu"][1])
+
+    Bd, D, U, batch = 16, 17, 4, 64
+    dcfg = ddpg.DDPGConfig(batch_size=batch, updates_per_iteration=U,
+                           replay_capacity=48 * Bd * DP_RANKS, use_zfilter=True)
+    gen = torch.Generator().manual_seed(200 + mesh.rank)
+    chunks = [{"obs": torch.randn(20, Bd, D, generator=gen),
+               "action": torch.rand(20, Bd, A, generator=gen) * 2 - 1,
+               "reward": torch.rand(20, Bd, generator=gen),
+               "done": torch.rand(20, Bd, generator=gen) < 0.05} for _ in range(3)]
+    indices = [(12 + torch.randint(0, 48 - dcfg.n_step, (batch,), generator=gen),
+                torch.randint(0, Bd, (batch,), generator=gen)) for _ in range(U)]
+    dres = {}
+    for d in ("cpu", dev):
+        init = torch.Generator().manual_seed(1)
+        state = ddpg.init_state(dcfg, DDPGActor(D, A, (64, 48), generator=init).to(d),
+                                DDPGCritic(D, A, (64, 48), generator=init).to(d), D)
+        ring = ddpg.init_replay(dcfg, Bd * DP_RANKS, D, A, d, shards=DP_RANKS)
+        for chunk in chunks:
+            ring = rp.replay_insert(ring, {k: v.to(d) for k, v in chunk.items()})
+        state.zfilter = ddpg.zfilter_update(state.zfilter, ring.data["obs"], mesh)
+        state, metrics = ddpg.update(dcfg, state, ring, None,
+                                     [(a.to(d), b.to(d)) for a, b in indices], axis=mesh)
+        dres[d] = ({f"{n}.{k}": p.detach().cpu() for n in ("actor", "critic", "target_actor",
+                                                           "target_critic")
+                    for k, p in getattr(state, n).named_parameters()},
+                   {k: float(x) for k, x in metrics.items()})
+    ddpg_err = max((dres["cpu"][0][k] - dres[dev][0][k]).abs().max().item()
+                   for k in dres["cpu"][0])
+    ddpg_m_err = max(abs(dres["cpu"][1][k] - dres[dev][1][k]) / max(1.0, abs(dres["cpu"][1][k]))
+                     for k in dres["cpu"][1])
+    return {"ppo_params_max_abs_err": ppo_err, "ppo_metrics_max_rel_err": ppo_m_err,
+            "ppo_loss_launches_on_the_card": kernel_launches,
+            "ddpg_params_max_abs_err": ddpg_err, "ddpg_metrics_max_rel_err": ddpg_m_err,
+            "digests": [hashlib.sha256(b"".join(p.numpy().tobytes() for p in
+                                                results[dev][0].values())).hexdigest(),
+                        hashlib.sha256(b"".join(p.numpy().tobytes() for p in
+                                                dres[dev][0].values())).hexdigest()]}
+
+
+def dp_rank_lstm(mesh) -> dict:
+    from surreal_tpu_torch.algos.ppo import PPOConfig
+    from surreal_tpu_torch.train import PPOTrainer
+
+    kernels = path_kernels()
+    torch.cuda.reset_peak_memory_stats()
+    t = PPOTrainer("cheetah-run", PPOConfig(**FLAGSHIP), num_envs=256, hidden=(256, 256), seed=0,
+                   use_lstm=True, lstm_size=128, mesh=mesh)
+    counts_zero(kernels)
+    times, m = dp_timed_runs(t, DP_ITERS["lstm"])
+    return {"s_per_iteration": times, "launches": counts(kernels), "metrics": m,
+            "digest": param_digest(t.state.net), "lr_scale": float(t.state.lr_scale),
+            "carry_max_abs": max(float(c.abs().max()) for c in t.carry),
+            "carry_rows": t.carry[0].shape[0],
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def dp_rank_overlap(mesh) -> dict:
+    from surreal_tpu_torch.algos.ppo import PPOConfig
+    from surreal_tpu_torch.train import PPOTrainer
+
+    kernels = path_kernels()
+    torch.cuda.reset_peak_memory_stats()
+    t = PPOTrainer("cheetah-run", PPOConfig(**FLAGSHIP), num_envs=256, hidden=(256, 256), seed=0,
+                   overlap=True, mesh=mesh)
+    counts_zero(kernels)
+    times, m = dp_timed_runs(t, DP_ITERS["overlap"])  # the first call primes the buffer
+    return {"s_per_iteration_first_with_prime": times, "launches": counts(kernels),
+            "metrics": m, "digest": param_digest(t.state.net),
+            "pending_rows": t._pending.reward.shape[1],
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def dp_rank_ddpg(mesh) -> dict:
+    from surreal_tpu_torch.algos.ddpg import DDPGConfig
+    from surreal_tpu_torch.train import DDPGTrainer
+
+    kernels = path_kernels()
+    torch.cuda.reset_peak_memory_stats()
+    t = DDPGTrainer("cheetah-run", DDPGConfig(), num_envs=256, seed=0, mesh=mesh)
+    counts_zero(kernels)
+    times, m = dp_timed_runs(t, DP_ITERS["ddpg"])
+    s = t.state
+    return {"s_per_iteration": times, "launches": counts(kernels), "metrics": m,
+            "digest": param_digest(s.actor, s.critic, s.target_actor, s.target_critic),
+            "ring_shape": list(t.replay.data["obs"].shape),
+            "ring_bytes": nbytes(*t.replay.data.values()), "replay_total": t.replay.total,
+            "update_step": s.update_step, "sigma": [float(t.sigma[0]), float(t.sigma[-1])],
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def dp_rank_shared(mesh) -> dict:
+    """The phases of 2 gloo ranks sharing the card, in one process each."""
+    out = {}
+    for name, fn in (("ppo", dp_rank_ppo), ("card_vs_cpu", dp_rank_card_vs_cpu),
+                     ("lstm", dp_rank_lstm), ("overlap", dp_rank_overlap),
+                     ("ddpg", dp_rank_ddpg)):
+        t0 = time.perf_counter()
+        out[name] = fn(mesh)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank_nccl(mesh) -> dict:
+    """A 1-rank NCCL group on the flagship: 2 iterations on the mesh, then
+    2 of the one-device trainer from the same seed."""
+    import torch.distributed as dist
+
+    from surreal_tpu_torch.algos.ppo import PPOConfig
+    from surreal_tpu_torch.train import PPOTrainer
+
+    kernels = path_kernels()
+    out = {"backend": dist.get_backend()}
+    for name, kw in (("mesh", {"mesh": mesh}), ("one_device", {"device": "cuda"})):
+        t = PPOTrainer("cheetah-run", PPOConfig(**FLAGSHIP), num_envs=256, hidden=(256, 256),
+                       seed=0, **kw)
+        counts_zero(kernels)
+        times, m = dp_timed_runs(t, 2)
+        out[name] = {"s_per_iteration": times, "launches": counts(kernels), "metrics": m,
+                     "digest": param_digest(t.state.net),
+                     "zfilter_digest": hashlib.sha256(b"".join(
+                         x.cpu().numpy().tobytes() for x in (t.state.zfilter.mean,
+                                                             t.state.zfilter.m2))).hexdigest()}
+    return out
+
+
+DP_RANK_PHASES = {"shared": dp_rank_shared, "nccl": dp_rank_nccl}
+
+
+def dp_rank(local: int, folder: str, world: int, phases: str) -> None:
+    """Rank `local` of `world`: joins the group at folder's file store, runs
+    DP_RANK_PHASES[phases] and writes its numbers to folder/rank<r>.json."""
+    import torch.distributed as dist
+
+    from surreal_tpu_torch.parallel import mesh as pmesh
+
+    pmesh.distributed_init("file://" + os.path.join(folder, "store"), world, local,
+                           device="cuda", timeout_s=DP_TIMEOUT_S)
+    try:
+        mesh = pmesh.make_mesh(world, device="cuda")
+        out = DP_RANK_PHASES[phases](mesh)
+        with open(os.path.join(folder, f"rank{mesh.rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(phases: str, world: int) -> list[dict]:
+    """Spawns the ranks and returns their numbers; fails if any failed."""
+    from surreal_tpu_torch.parallel.mesh import spawn
+
+    folder = tempfile.mkdtemp(prefix=f"chip_smoke_dp_{phases}_")
+    try:
+        spawn(dp_rank, world, (folder, world, phases), timeout_s=DP_TIMEOUT_S)
+        out = []
+        for r in range(world):
+            with open(os.path.join(folder, f"rank{r}.json")) as f:
+                out.append(json.load(f))
+        return out
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"the {phases} ranks failed: {e}")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def phase_dp_shared() -> dict:
+    """Phases 28-32: 2 gloo ranks sharing the card. Returns each path's
+    launches, per rank."""
+    t0 = time.perf_counter()
+    ranks = run_ranks("shared", DP_RANKS)
+    wall = time.perf_counter() - t0
+    steps = 256 * 128
+    by_path = {}
+
+    def same(name, key="digest"):
+        vals = [r[name][key] for r in ranks]
+        if len(set(map(str, vals))) != 1:
+            fail(f"{name}: {key} differs across ranks: {vals}")
+
+    # 28: the flagship
+    p = [r["ppo"] for r in ranks]
+    n = DP_ITERS["ppo"]
+    want = {"gae": 0, "ppo_loss_fwd": 32 * n, "ppo_loss_bwd": 32 * n}
+    for r, x in enumerate(p):
+        if x["launches"] != want:
+            fail(f"ppo_dp2_cheetah: rank {r} launched {x['launches']}, not {want}")
+        if x["rows_per_minibatch"] != 2048 or x["local_envs"] != 128:
+            fail(f"ppo_dp2_cheetah: rank {r} ran {x['local_envs']} envs and "
+                 f"{x['rows_per_minibatch']} rows a minibatch, not 128 and 2,048")
+        check_finite("ppo_dp2_cheetah", x["metrics"])
+        by_path[f"ppo_dp2_cheetah_rank{r}"] = x["launches"]
+    for key in ("digest", "lr_scale", "kl_beta", "update_step"):
+        same("ppo", key)
+    s_iter = [sum(x["s_per_iteration"]) / n for x in p]
+    print(json.dumps({
+        "phase": "ppo_dp2_cheetah", "ranks": DP_RANKS, "backend": "gloo",
+        "num_envs": 256, "envs_per_rank": 128, "rows_per_minibatch": 2048,
+        "s_per_iteration_by_rank": [x["s_per_iteration"] for x in p],
+        "env_steps_per_s_both": steps / max(s_iter),
+        "params_bitwise_equal": True, "launches_by_rank": [x["launches"] for x in p],
+        "split_iteration_by_rank": [{k: x[k] for k in ("rollout_s", "update_s", "allreduce_s",
+                                                        "allreduce_calls")} for x in p],
+        "allreduce_share_of_update": [x["allreduce_s"] / x["update_s"] for x in p],
+        "max_memory_allocated_by_rank": [x["max_memory_allocated"] for x in p],
+        "metrics_rank0": p[0]["metrics"], "phase_s": [x["phase_s"] for x in p]}))
+
+    # 29: card vs CPU
+    c = [r["card_vs_cpu"] for r in ranks]
+    same("card_vs_cpu", "digests")
+    print(json.dumps({"phase": "dp2_card_vs_cpu", "tol": 1e-5, "metrics_tol": 1e-4, "ranks": c}))
+    for r, x in enumerate(c):
+        if x["ppo_loss_launches_on_the_card"] != [8, 8]:
+            fail(f"dp2_card_vs_cpu: rank {r}'s card update launched the loss kernels "
+                 f"{x['ppo_loss_launches_on_the_card']} times, not 8 + 8")
+        if not (x["ppo_params_max_abs_err"] <= 1e-5 and x["ppo_metrics_max_rel_err"] <= 1e-4
+                and x["ddpg_params_max_abs_err"] <= TOL_DDPG_PARITY
+                and x["ddpg_metrics_max_rel_err"] <= 1e-4):
+            fail(f"dp2_card_vs_cpu: rank {r}'s sharded update on the card disagrees with the "
+                 f"CPU's: {x}")
+
+    # 30: LSTM-PPO
+    ls = [r["lstm"] for r in ranks]
+    same("lstm")
+    same("lstm", "lr_scale")
+    for r, x in enumerate(ls):
+        if any(x["launches"].values()) or x["carry_rows"] != 128 or x["carry_max_abs"] <= 0:
+            fail(f"lstm_dp2_cheetah: rank {r}: {x}")
+        check_finite("lstm_dp2_cheetah", x["metrics"])
+        by_path[f"lstm_dp2_cheetah_rank{r}"] = x["launches"]
+    print(json.dumps({"phase": "lstm_dp2_cheetah", "envs_per_rank": 128,
+                      "s_per_iteration_by_rank": [x["s_per_iteration"] for x in ls],
+                      "env_steps_per_s_both": steps / max(x["s_per_iteration"][-1] for x in ls),
+                      "launches_by_rank": [x["launches"] for x in ls],
+                      "params_bitwise_equal": True,
+                      "max_memory_allocated_by_rank": [x["max_memory_allocated"] for x in ls]}))
+
+    # 31: the overlapped step
+    ov = [r["overlap"] for r in ranks]
+    same("overlap")
+    n = DP_ITERS["overlap"]
+    want = {"gae": 0, "ppo_loss_fwd": 32 * n, "ppo_loss_bwd": 32 * n}
+    for r, x in enumerate(ov):
+        if x["launches"] != want or x["pending_rows"] != 128:
+            fail(f"overlap_dp2_cheetah: rank {r}: {x['launches']} (want {want}), "
+                 f"pending of {x['pending_rows']} envs")
+        check_finite("overlap_dp2_cheetah", x["metrics"])
+        by_path[f"overlap_dp2_cheetah_rank{r}"] = x["launches"]
+    print(json.dumps({"phase": "overlap_dp2_cheetah", "envs_per_rank": 128,
+                      "s_per_iteration_by_rank_first_with_prime":
+                          [x["s_per_iteration_first_with_prime"] for x in ov],
+                      "env_steps_per_s_both":
+                          steps / max(x["s_per_iteration_first_with_prime"][-1] for x in ov),
+                      "launches_by_rank": [x["launches"] for x in ov],
+                      "params_bitwise_equal": True}))
+
+    # 32: DDPG, its recipe's global ring
+    dd = [r["ddpg"] for r in ranks]
+    same("ddpg")
+    same("ddpg", "update_step")
+    n = DP_ITERS["ddpg"]
+    for r, x in enumerate(dd):
+        # the warm-up counts a rank's own 128 envs: 10,000 transitions after
+        # 79 steps, so iterations 5 and 6 update
+        if (x["ring_shape"] != [999_936 // 256, 128, 17] or x["update_step"] != 32
+                or x["replay_total"] != 16 * n or any(x["launches"].values())):
+            fail(f"ddpg_dp2_cheetah: rank {r}: {x}")
+        check_finite("ddpg_dp2_cheetah", x["metrics"])
+        by_path[f"ddpg_dp2_cheetah_rank{r}"] = x["launches"]
+    if abs(dd[0]["sigma"][0] - 0.05) > 1e-7 or abs(dd[1]["sigma"][1] - 0.4) > 1e-7:
+        fail(f"ddpg_dp2_cheetah: the ranks' noise ladders {[x['sigma'] for x in dd]} are not "
+             "the halves of the global one")
+    print(json.dumps({"phase": "ddpg_dp2_cheetah", "envs_per_rank": 128,
+                      "ring_transitions_global": 999_936,
+                      "ring_shape_by_rank": [x["ring_shape"] for x in dd],
+                      "ring_bytes_by_rank": [x["ring_bytes"] for x in dd],
+                      "s_per_iteration_by_rank": [x["s_per_iteration"] for x in dd],
+                      "env_steps_per_s_both_updating":
+                          16 * 256 / max(x["s_per_iteration"][-1] for x in dd),
+                      "update_step": dd[0]["update_step"], "launches_by_rank":
+                          [x["launches"] for x in dd], "params_bitwise_equal": True,
+                      "metrics_rank0": dd[0]["metrics"],
+                      "max_memory_allocated_by_rank": [x["max_memory_allocated"] for x in dd]}))
+    print(f"dp shared-card phases: {wall:.1f} s with the ranks' start")
+    return by_path
+
+
+def phase_dp_nccl() -> dict:
+    """Phase 33: a 1-rank NCCL group on the flagship, bit for bit the
+    one-device trainer. Returns its launches."""
+    (r,) = run_ranks("nccl", 1)
+    n = 2
+    want = {"gae": 0, "ppo_loss_fwd": 32 * n, "ppo_loss_bwd": 32 * n}
+    print(json.dumps({"phase": "ppo_dp1_nccl_cheetah", **r}))
+    if r["backend"] != "nccl":
+        fail(f"the 1-rank group ran over {r['backend']}, not nccl")
+    if r["mesh"]["launches"] != want or r["one_device"]["launches"] != want:
+        fail(f"ppo_dp1_nccl_cheetah launched {r['mesh']['launches']}, not {want}")
+    for key in ("digest", "zfilter_digest"):
+        if r["mesh"][key] != r["one_device"][key]:
+            fail(f"the 1-rank NCCL trainer's {key} differs from the one-device trainer's")
+    timeless = [{k: v for k, v in r[t]["metrics"].items() if "per_s" not in k}
+                for t in ("mesh", "one_device")]
+    if timeless[0] != timeless[1]:
+        fail("the 1-rank NCCL trainer's metrics differ from the one-device trainer's")
+    return r["mesh"]["launches"]
+
+
+def phase_cli_dp2() -> dict:
+    """Phase 34: `train ppo --session.mesh.data 2` through the port's CLI,
+    as a user runs it (the command spawns its 2 ranks), at the
+    cartpole-balance recipe's width with the fused loss: 2 iterations with
+    a checkpoint each; the same run stopped after 1 and resumed; its last
+    checkpoint against the uninterrupted run's, bit for bit; config.json
+    written once; the ranks' evaluation lines equal; then `eval`."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_dp2_")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    out = {"phase": "cli_ppo_cartpole_dp2"}
+
+    def cli(*args) -> subprocess.CompletedProcess:
+        argv = [sys.executable, "-m", "surreal_tpu_torch.cli.main", *args]
+        done = subprocess.run(argv, env=env, capture_output=True, text=True, timeout=600)
+        if done.returncode != 0:
+            fail(f"the CLI failed: {argv}\n{done.stderr[-3000:]}")
+        return done
+
+    def train(name, iters):
+        return cli("train", "ppo", *CARTPOLE_FLAGS, "--session.mesh.data", "2",
+                   "--session.total_env_steps", str(iters * CARTPOLE_ITER),
+                   "--session.checkpoint_every_steps", str(CARTPOLE_ITER),
+                   "--session.eval_every_steps", str(iters * CARTPOLE_ITER),
+                   "--session.results_dir", root, "--session.experiment_name", name,
+                   "--device", "cuda")
+
+    def evals(text):
+        got = {}
+        for rank, line in re.findall(r"cli\.rank(\d+)\] (eval @ .*)", text):
+            got.setdefault(rank, []).append(line)
+        return got
+
+    def checkpoint(name):
+        folder = os.path.join(root, name, "checkpoints", "latest", str(2 * CARTPOLE_ITER))
+        return {f: torch.load(os.path.join(folder, f), weights_only=True, map_location="cpu")
+                for f in sorted(os.listdir(folder)) if f.endswith(".pt")}
+
+    try:
+        t0 = time.perf_counter()
+        straight = train("straight", 2)
+        t1 = time.perf_counter()
+        first = train("resumed", 1)
+        resumed = train("resumed", 2)
+        t2 = time.perf_counter()
+        writes = len(re.findall(r"wrote .*config\.json", straight.stderr))
+        ev = evals(straight.stderr)
+        unequal = unequal_leaves(checkpoint("straight"), checkpoint("resumed"))
+        resumed_lines = re.findall(r"rank\d\] resumed from checkpoint @ (\d+)", resumed.stderr)
+        ran = cli("eval", "--experiment", os.path.join(root, "straight"), "--episodes", "16",
+                  "--device", "cuda")
+        result = json.loads(ran.stdout.strip().splitlines()[-1])
+        out.update(straight_2_iterations_s=t1 - t0, stopped_and_resumed_s=t2 - t1,
+                   config_json_writes=writes, evals_by_rank=ev,
+                   resumed_from=resumed_lines, unequal_after_resume=unequal, eval=result,
+                   backend_line=[ln for ln in straight.stdout.splitlines() if "ranks over" in ln],
+                   rank_lines=[ln for ln in straight.stderr.splitlines() if "LOCAL_RANK" in ln],
+                   first_run_evals=evals(first.stderr))
+        print(json.dumps(out))
+        if writes != 1:
+            fail(f"config.json was written {writes} times")
+        if sorted(ev) != ["0", "1"] or ev["0"] != ev["1"]:
+            fail(f"the ranks' evaluations differ: {ev}")
+        if resumed_lines != [str(CARTPOLE_ITER)] * 2:
+            fail(f"the ranks did not both resume at iteration 1: {resumed_lines}")
+        if unequal:
+            fail(f"the resumed run's checkpoint differs from the uninterrupted one's: {unequal}")
+        if f"{result['return_mean']:.1f}" not in ev["0"][-1]:
+            fail(f"`eval` of the checkpoint ({result}) is not the ranks' evaluation {ev['0']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
@@ -2966,6 +3513,13 @@ def main():
         return
     if sys.argv[1:2] == ["--gae-sweep"]:
         gae_sweep()
+        return
+    if sys.argv[1:2] == ["--dp"]:
+        phase_card()
+        phase_build()
+        phase_dp_shared()
+        phase_dp_nccl()
+        phase_cli_dp2()
         return
     if sys.argv[1:2] == ["--learn"]:
         rest = sys.argv[2:]
@@ -3003,6 +3557,9 @@ def main():
     gym_launches = phase_ppo_gym(dev, found)
     phase_oracle(dev, found)
     phase_video_mujoco(dev, found, trainer)
+    dp_launches = phase_dp_shared()
+    nccl_launches = phase_dp_nccl()
+    phase_cli_dp2()
     breakdown(trainer)
     new_cells_profile(ddpg_trainer, ddpg_times, lstm_trainer, lstm_times)
     finger_profile(finger_trainer, finger_times)
@@ -3020,7 +3577,13 @@ def main():
                    "cli_ppo_cartpole_bf16_overlap": cli_bf16_launches[name],
                    "ppo_instance": instance_launches[name],
                    # None: gymnasium is missing, so the path was not driven
-                   "ppo_gym": None if gym_launches is None else gym_launches[name]}
+                   "ppo_gym": None if gym_launches is None else gym_launches[name],
+                   # the data axis, per rank (each rank counts in its own process)
+                   **{path: n[name] for path, n in dp_launches.items()},
+                   "ppo_dp1_nccl_cheetah": nccl_launches[name],
+                   # None: the CLI's ranks are its own processes, whose counts
+                   # this script does not read (phase 34 checks the run itself)
+                   "cli_ppo_cartpole_dp2": None}
         k["launches"] = sum(v for v in by_path.values() if v is not None)
         k["launches_by_path"] = by_path
         for extra in ("tol", "bytes", "call_ms", "plain_call_ms"):

@@ -1,10 +1,13 @@
 """DDPG: off-policy TD learning with uniform on-device replay and target
-networks (port of surreal_tpu/algos/ddpg.py, single device).
+networks (port of surreal_tpu/algos/ddpg.py).
 
 A deterministic tanh actor explores with Ornstein-Uhlenbeck or Gaussian
 noise, scaled per env by a ladder so the lockstep envs explore at different
 intensities; the critic learns n-step TD targets through target actor and
-critic; targets follow softly (tau) or by periodic hard copies.
+critic; targets follow softly (tau) or by periodic hard copies. With
+`axis`, a data mesh (`parallel.mesh`), the critic's and the actor's
+gradients and the Z-filter's statistics are reduced across the ranks, as
+the reference's `axis_name` does; each rank's ring holds its own envs.
 
 As in `algos/ppo.py`, the steps run eagerly and the train state (the four
 networks, the two Adam states) is updated in place. `rollout` accepts the
@@ -50,6 +53,7 @@ from surreal_tpu_torch.models.z_filter import (
     zfilter_update,
 )
 from surreal_tpu_torch.ops.returns import nstep_returns
+from surreal_tpu_torch.parallel.mesh import pmean_flat
 from surreal_tpu_torch.parallel.param_sync import (
     ParamSyncState,
     param_sync_init,
@@ -62,7 +66,7 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class DDPGConfig:
     """The reference's DDPGConfig: same fields, same defaults. The sharded
-    optimizer must keep its off values."""
+    optimizer must keep its off values (A15b)."""
 
     rollout_steps: int = 16  # env steps per train iteration
     updates_per_iteration: int = 16
@@ -100,7 +104,7 @@ class DDPGConfig:
         if self.zero_optimizer or self.zero_shards != 1:
             raise NotImplementedError(
                 "zero_optimizer is a multi-device feature that is not ported yet "
-                "(ROADMAP.md, Queue A)")
+                "(ROADMAP.md, Queue A: A15b)")
         if self.noise_type not in ("ou", "gaussian"):
             raise ValueError(f"unknown noise_type {self.noise_type!r}")
 
@@ -173,18 +177,22 @@ def random_shift(obs: Tensor, pad: int, generator: torch.Generator | None = None
 
 def init_replay(cfg: DDPGConfig, num_envs: int, obs_dim: int, action_dim: int,
                 device: torch.device | str, obs_shape: tuple[int, ...] | None = None,
-                obs_dtype: torch.dtype = torch.float32) -> ReplayState:
+                obs_dtype: torch.dtype = torch.float32, shards: int = 1) -> ReplayState:
     """The ring on `device`: replay_capacity transitions across the envs,
     and never fewer steps than one rollout chunk. `obs_shape`/`obs_dtype`
     replace the flat (obs_dim,) float32 layout: pixel frames are stored raw,
-    uint8 (21,168 bytes a frame stack at 84 x 84 x 3)."""
+    uint8 (21,168 bytes a frame stack at 84 x 84 x 3). With `shards` data
+    ranks, this rank's shard: the ring is as deep as the global `num_envs`
+    make it and holds num_envs / shards envs (the reference shards the
+    global ring's env axis)."""
     capacity_t = max(cfg.replay_capacity // num_envs, cfg.rollout_steps)
-    shape = (num_envs,) + (tuple(obs_shape) if obs_shape is not None else (obs_dim,))
+    width = num_envs // shards
+    shape = (width,) + (tuple(obs_shape) if obs_shape is not None else (obs_dim,))
     example = {
         "obs": torch.zeros(shape, dtype=obs_dtype, device=device),
-        "action": torch.zeros(num_envs, action_dim, device=device),
-        "reward": torch.zeros(num_envs, device=device),
-        "done": torch.zeros(num_envs, dtype=torch.bool, device=device),
+        "action": torch.zeros(width, action_dim, device=device),
+        "reward": torch.zeros(width, device=device),
+        "done": torch.zeros(width, dtype=torch.bool, device=device),
     }
     return replay_init(example, capacity_t)
 
@@ -245,11 +253,13 @@ def rollout(cfg: DDPGConfig, env: Environment, flatten_obs: Callable, state: DDP
 
 
 def _adam_step(module: torch.nn.Module, loss: Tensor, opt: AdamState, lr: float,
-               max_grad_norm: float) -> None:
+               max_grad_norm: float, axis=None) -> None:
     """optax.chain(clip_by_global_norm, scale_by_adam(), scale(-lr)) on the
     module's parameters, in place: optax's default eps of 1e-8, not PPO's
     1e-5. The gradient is taken with respect to this module's parameters
-    only, so a loss that runs through another network leaves it alone."""
+    only, so a loss that runs through another network leaves it alone; with
+    `axis`, it is averaged across the ranks (one flat all-reduce) before
+    the clip, as the reference's pmean of the gradient tree."""
     named = dict(module.named_parameters())
     # a detached stem is not in the loss's graph: its gradient is zero, as
     # the reference's stop_gradient makes it
@@ -258,6 +268,7 @@ def _adam_step(module: torch.nn.Module, loss: Tensor, opt: AdamState, lr: float,
     live = [n for n in named if n not in frozen]
     grads = dict(zip(live, torch.autograd.grad(loss, [named[n] for n in live])))
     grads = {n: grads[n] if n in grads else torch.zeros_like(p) for n, p in named.items()}
+    grads = dict(zip(grads, pmean_flat(list(grads.values()), axis)))
     with torch.no_grad():
         updates = scale_by_adam(clip_by_global_norm(grads, max_grad_norm), opt, eps=1e-8)
         for n, p in named.items():
@@ -266,14 +277,15 @@ def _adam_step(module: torch.nn.Module, loss: Tensor, opt: AdamState, lr: float,
 
 def update(cfg: DDPGConfig, state: DDPGTrainState, replay: ReplayState,
            generator: torch.Generator | None, indices=None, target_eps: Tensor | None = None,
-           aug_offsets=None):
+           aug_offsets=None, axis=None):
     """`updates_per_iteration` critic and actor steps on batches sampled from
     `replay`; updates `state` in place. `indices`, if given, is one (a, b)
     pair of replay index tensors per update, `target_eps` (U, batch, A)
     the standard-normal draws of the target smoothing, and `aug_offsets` one
     pair of (batch, 2) shift offsets (obs, next obs) per update: they
-    replace the draws from `generator`. Returns (state, metrics of the last
-    update)."""
+    replace the draws from `generator`. `axis` averages the critic's and
+    then the actor's gradients across the ranks. Returns (state, metrics of
+    the last update)."""
     metrics = {}
     for u in range(cfg.updates_per_iteration):
         with torch.no_grad():
@@ -298,7 +310,8 @@ def update(cfg: DDPGConfig, state: DDPGTrainState, replay: ReplayState,
 
         q = state.critic(obs, action)
         c_loss = torch.mean((q - y) ** 2)
-        _adam_step(state.critic, c_loss, state.critic_opt, cfg.critic_lr, cfg.max_grad_norm)
+        _adam_step(state.critic, c_loss, state.critic_opt, cfg.critic_lr, cfg.max_grad_norm,
+                   axis)
 
         step_no = state.update_step + 1
         # TD3's delayed actor: on the other steps the actor's parameters and
@@ -309,7 +322,8 @@ def update(cfg: DDPGConfig, state: DDPGTrainState, replay: ReplayState,
             # the actor's loss runs through the critic as just updated
             a_loss = -torch.mean(state.critic(obs, state.actor(obs)))
         if do_actor:
-            _adam_step(state.actor, a_loss, state.actor_opt, cfg.actor_lr, cfg.max_grad_norm)
+            _adam_step(state.actor, a_loss, state.actor_opt, cfg.actor_lr, cfg.max_grad_norm,
+                       axis)
         if cfg.shared_encoder:
             # after the actor_delay gate, so the copy is fresh on critic-only
             # steps too, and before the targets follow the actor
@@ -332,17 +346,20 @@ def train_step(cfg: DDPGConfig, env: Environment, flatten_obs: Callable, state: 
                replay: ReplayState, env_state: EnvState, obs: Tensor, ou_state: Tensor,
                sigma: Tensor, ep_ret: Tensor, generator: torch.Generator,
                eps: Tensor | None = None, indices=None, target_eps: Tensor | None = None,
-               aug_offsets=None):
+               aug_offsets=None, axis=None):
     """One iteration: `rollout_steps` env steps, then the updates once the
-    replay holds `min_replay` transitions (zero metrics before that).
-    Returns (state, replay, env_state, obs, ou_state, ep_ret, metrics)."""
+    replay holds `min_replay` transitions (zero metrics before that; on a
+    rank's shard, its own transitions count, as in the reference's sharded
+    step). Returns (state, replay, env_state, obs, ou_state, ep_ret,
+    metrics)."""
     replay, env_state, obs, ou_state, ep_ret, chunk, ep_stats = rollout(
         cfg, env, flatten_obs, state, env_state, obs, ou_state, sigma, ep_ret, generator,
         replay, eps)
     if cfg.use_zfilter:
-        state.zfilter = zfilter_update(state.zfilter, chunk["obs"])
+        state.zfilter = zfilter_update(state.zfilter, chunk["obs"], axis)
     if replay.total * replay.num_envs >= cfg.min_replay:
-        state, metrics = update(cfg, state, replay, generator, indices, target_eps, aug_offsets)
+        state, metrics = update(cfg, state, replay, generator, indices, target_eps, aug_offsets,
+                                axis)
     else:
         zero = torch.zeros((), device=obs.device)
         metrics = {"critic_loss": zero, "actor_loss": zero, "q_mean": zero}

@@ -1,5 +1,5 @@
 """PPO: rollout + GAE + clipped-surrogate / adaptive-KL update (port of
-surreal_tpu/algos/ppo.py, single device).
+surreal_tpu/algos/ppo.py).
 
 The reference jits one fused function over pure state; here the same steps
 run eagerly and the train state is updated in place (the network's
@@ -9,6 +9,12 @@ state object they were given.
 Randomness comes from explicit `torch.Generator`s. The reference's threefry
 streams cannot be reproduced, so `rollout` accepts pre-drawn action noise
 and `update` pre-drawn permutations; tests feed the reference's draws.
+
+`update` and the steps take `axis`, a data mesh (`parallel.mesh`), where
+the reference takes `axis_name`: they then reduce across the ranks at the
+reference's points, in its order (the advantages' mean and variance, each
+minibatch's gradients, the KL that drives the adaptation, the Z-filter).
+With `axis=None` they compute what the one-device path computes.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from surreal_tpu_torch.models.z_filter import (
     zfilter_update,
 )
 from surreal_tpu_torch.ops.returns import gae
+from surreal_tpu_torch.parallel.mesh import pmean, pmean_flat
 from surreal_tpu_torch.parallel.param_sync import (
     ParamSyncState,
     param_sync_init,
@@ -41,9 +48,9 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class PPOConfig:
-    """The reference's PPOConfig: same fields, same defaults. The port runs
-    one device, so `zero_optimizer`/`zero_shards` and `time_shards` must
-    keep their single-device values."""
+    """The reference's PPOConfig: same fields, same defaults. The port has
+    the data axis only, so `zero_shards` and `time_shards` must keep their
+    one-device values (A15b)."""
 
     horizon: int = 128
     gamma: float = 0.99
@@ -76,7 +83,7 @@ class PPOConfig:
         if self.time_shards != 1 or self.zero_shards != 1:
             raise NotImplementedError(
                 "time_shards and zero_shards > 1 are multi-device features that "
-                "are not ported yet (ROADMAP.md, Queue A)"
+                "are not ported yet (ROADMAP.md, Queue A: A15b)"
             )
         if self.objective not in ("clip", "adaptive_kl"):
             raise ValueError(f"unknown objective {self.objective!r}")
@@ -298,12 +305,14 @@ def _loss_fn(cfg: PPOConfig, net: PPOActorCritic, batch, kl_beta: Tensor, ent_co
     return surrogate_loss(cfg, mean, log_std, value, rest, kl_beta, ent_coef)
 
 
-def apply_gradients(cfg: PPOConfig, state: PPOTrainState, loss: Tensor, lr: Tensor) -> Tensor:
-    """One optimizer step on `loss`: global-norm clip, Adam, the step scaled
-    by `lr` (cfg.lr · lr_scale); the network's parameters move in place.
-    Returns the gradient's norm."""
+def apply_gradients(cfg: PPOConfig, state: PPOTrainState, loss: Tensor, lr: Tensor,
+                    axis=None) -> Tensor:
+    """One optimizer step on `loss`: the gradients averaged across `axis`'s
+    ranks (one flat all-reduce), global-norm clip, Adam, the step scaled by
+    `lr` (cfg.lr · lr_scale); the network's parameters move in place.
+    Returns the averaged gradient's norm."""
     names, params = zip(*state.net.named_parameters())
-    grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    grads = dict(zip(names, pmean_flat(torch.autograd.grad(loss, params), axis)))
     with torch.no_grad():
         g_norm = global_norm(grads.values())
         guards.assert_finite(g_norm, "ppo.update.grad_norm")
@@ -313,11 +322,13 @@ def apply_gradients(cfg: PPOConfig, state: PPOTrainState, loss: Tensor, lr: Tens
         return g_norm
 
 
-def finish_update(cfg: PPOConfig, state: PPOTrainState, raw_obs: Tensor, metrics: dict) -> None:
+def finish_update(cfg: PPOConfig, state: PPOTrainState, raw_obs: Tensor, metrics: dict,
+                  axis=None) -> None:
     """What follows the epochs: the KL-triggered adaptation on the last
-    minibatch's KL, the Z-filter update from the rollout's raw observations,
-    the step count and the publish-to-actors cadence."""
-    kl = metrics["kl"]
+    minibatch's KL (its mean across `axis`'s ranks, so every rank decides
+    alike), the Z-filter update from the rollout's raw observations, the
+    step count and the publish-to-actors cadence."""
+    kl = pmean(metrics["kl"], axis)
     hi, lo = kl > 2.0 * cfg.kl_target, kl < cfg.kl_target / 2.0
     if cfg.objective == "adaptive_kl":
         state.kl_beta = torch.where(
@@ -329,7 +340,7 @@ def finish_update(cfg: PPOConfig, state: PPOTrainState, raw_obs: Tensor, metrics
             torch.where(lo, state.lr_scale * cfg.lr_adapt_factor, state.lr_scale))
         state.lr_scale = torch.clamp(lr_scale, cfg.lr_min_scale, cfg.lr_max_scale)
     if cfg.use_zfilter:
-        state.zfilter = zfilter_update(state.zfilter, raw_obs)
+        state.zfilter = zfilter_update(state.zfilter, raw_obs, axis)
     state.update_step += 1
     if cfg.publish_every > 1:
         param_sync_refresh(state.psync, state.net, state.update_step, cfg.publish_every)
@@ -337,11 +348,21 @@ def finish_update(cfg: PPOConfig, state: PPOTrainState, raw_obs: Tensor, metrics
     metrics["kl_beta"] = state.kl_beta
 
 
+def normalize_advantages(adv: Tensor, axis=None) -> Tensor:
+    """(adv − mean) / std over the whole batch: across `axis`'s ranks, the
+    mean of the local means, then the mean of the local mean squared
+    deviations from it."""
+    a_mean = pmean(torch.mean(adv), axis)
+    a_var = pmean(torch.mean((adv - a_mean) ** 2), axis)
+    return (adv - a_mean) * torch.rsqrt(a_var + 1e-8)
+
+
 def update(cfg: PPOConfig, state: PPOTrainState, traj: Trajectory,
-           generator: torch.Generator, perms: Tensor | None = None):
+           generator: torch.Generator, perms: Tensor | None = None, axis=None):
     """K epochs of minibatched SGD on the rollout chunk; updates `state` in
     place. `perms` (epochs, T·B), if given, replaces the per-epoch random
-    permutations drawn from `generator`. Returns (state, metrics)."""
+    permutations drawn from `generator`. With `axis`, the chunk is this
+    rank's share of the batch. Returns (state, metrics)."""
     T, B = traj.reward.shape
     net = state.net
     with torch.no_grad():
@@ -349,9 +370,7 @@ def update(cfg: PPOConfig, state: PPOTrainState, traj: Trajectory,
         adv, vtarg = gae(traj.reward, traj.value, traj.next_value, traj.discount, traj.done,
                          cfg.gamma, cfg.lam)
         if cfg.normalize_adv:
-            a_mean = torch.mean(adv)
-            a_var = torch.mean((adv - a_mean) ** 2)
-            adv = (adv - a_mean) * torch.rsqrt(a_var + 1e-8)
+            adv = normalize_advantages(adv, axis)
     N = T * B
     flat = (
         obs.reshape((N,) + obs.shape[2:]),
@@ -374,19 +393,19 @@ def update(cfg: PPOConfig, state: PPOTrainState, traj: Trajectory,
         for idx in idxs:
             mb = tuple(x[idx] for x in flat)
             loss, metrics = _loss_fn(cfg, net, mb, state.kl_beta, ent_coef)
-            metrics["grad_norm"] = apply_gradients(cfg, state, loss, lr)
-    finish_update(cfg, state, traj.obs, metrics)
+            metrics["grad_norm"] = apply_gradients(cfg, state, loss, lr, axis)
+    finish_update(cfg, state, traj.obs, metrics, axis)
     return state, metrics
 
 
 def train_step(cfg: PPOConfig, env: Environment, flatten_obs: Callable,
                state: PPOTrainState, env_state: EnvState, obs: Tensor, ep_ret: Tensor,
                generator: torch.Generator, noise: Tensor | None = None,
-               perms: Tensor | None = None):
+               perms: Tensor | None = None, axis=None):
     """rollout + update. Returns (state, env_state, obs, ep_ret, metrics)."""
     traj, env_state, obs, ep_ret, ep_stats = rollout(
         cfg, env, flatten_obs, state, env_state, obs, ep_ret, generator, noise)
-    state, metrics = update(cfg, state, traj, generator, perms)
+    state, metrics = update(cfg, state, traj, generator, perms, axis)
     metrics.update(ep_stats)
     metrics["reward_per_step"] = torch.mean(traj.reward)
     return state, env_state, obs, ep_ret, metrics
@@ -395,7 +414,8 @@ def train_step(cfg: PPOConfig, env: Environment, flatten_obs: Callable,
 def train_step_overlapped(cfg: PPOConfig, env: Environment, flatten_obs: Callable,
                           state: PPOTrainState, env_state: EnvState, obs: Tensor,
                           ep_ret: Tensor, pending: Trajectory, generator: torch.Generator,
-                          noise: Tensor | None = None, perms: Tensor | None = None):
+                          noise: Tensor | None = None, perms: Tensor | None = None,
+                          axis=None):
     """The double-buffered step: iteration k collects trajectory k with the
     pre-update parameters (through `acting_params`, so `publish_every`
     composes) and updates on `pending`, trajectory k-1: an actor/learner
@@ -409,7 +429,7 @@ def train_step_overlapped(cfg: PPOConfig, env: Environment, flatten_obs: Callabl
     call's `pending`."""
     traj, env_state, obs, ep_ret, ep_stats = rollout(
         cfg, env, flatten_obs, state, env_state, obs, ep_ret, generator, noise)
-    state, metrics = update(cfg, state, pending, generator, perms)
+    state, metrics = update(cfg, state, pending, generator, perms, axis)
     metrics.update(ep_stats)
     metrics["reward_per_step"] = torch.mean(pending.reward)
     return state, env_state, obs, ep_ret, traj, metrics

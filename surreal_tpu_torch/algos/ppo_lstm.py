@@ -1,5 +1,5 @@
 """PPO with a recurrent (LSTM) policy: sub-trajectory chunk training (port
-of surreal_tpu/algos/ppo_lstm.py, single device).
+of surreal_tpu/algos/ppo_lstm.py).
 
 The rollout carries the LSTM state across env steps and zeroes it at
 episode boundaries; each chunk stores only its initial carry, and the
@@ -10,7 +10,8 @@ whole.
 Shares PPOConfig, PPOTrainState, the optimizer and the entropy schedule with
 `algos/ppo.py`. As there, the steps run eagerly, the train state is updated
 in place, `rollout` accepts pre-drawn action noise and `update` pre-drawn
-permutations (of the envs here).
+permutations (of the envs here), and `axis` (a data mesh) reduces across
+the ranks at the reference's points.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from surreal_tpu_torch.algos.ppo import (
     apply_gradients,
     entropy_coef_at,
     finish_update,
+    normalize_advantages,
     surrogate_loss,
 )
 from surreal_tpu_torch.envs.base import EnvState, Environment
@@ -126,7 +128,7 @@ def _sequence_outputs(net: PPOActorCritic, obs_seq: Tensor, done_seq: Tensor,
 
 
 def update(cfg: PPOConfig, state: PPOTrainState, traj: LSTMTrajectory,
-           generator: torch.Generator, perms: Tensor | None = None):
+           generator: torch.Generator, perms: Tensor | None = None, axis=None):
     """K epochs of SGD over minibatches of whole env sequences; updates
     `state` in place. `perms` (epochs, B), if given, replaces the per-epoch
     random permutations of the envs drawn from `generator`. Returns (state,
@@ -138,9 +140,7 @@ def update(cfg: PPOConfig, state: PPOTrainState, traj: LSTMTrajectory,
         adv, vtarg = gae(traj.reward, traj.value, traj.next_value, traj.discount, traj.done,
                          cfg.gamma, cfg.lam)
         if cfg.normalize_adv:
-            a_mean = torch.mean(adv)
-            a_var = torch.mean((adv - a_mean) ** 2)
-            adv = (adv - a_mean) * torch.rsqrt(a_var + 1e-8)
+            adv = normalize_advantages(adv, axis)
     mb_envs = B // cfg.num_minibatches
     ent_coef = entropy_coef_at(cfg, state.update_step)
     lr = cfg.lr * state.lr_scale
@@ -156,19 +156,19 @@ def update(cfg: PPOConfig, state: PPOTrainState, traj: LSTMTrajectory,
                                               traj.log_std, adv, vtarg, traj.value))
             loss, metrics = surrogate_loss(cfg, mean, log_std, value, batch, state.kl_beta,
                                            ent_coef)
-            metrics["grad_norm"] = apply_gradients(cfg, state, loss, lr)
-    finish_update(cfg, state, traj.obs, metrics)
+            metrics["grad_norm"] = apply_gradients(cfg, state, loss, lr, axis)
+    finish_update(cfg, state, traj.obs, metrics, axis)
     return state, metrics
 
 
 def train_step(cfg: PPOConfig, env: Environment, flatten_obs: Callable, state: PPOTrainState,
                env_state: EnvState, obs: Tensor, carry: Carry, ep_ret: Tensor,
                generator: torch.Generator, noise: Tensor | None = None,
-               perms: Tensor | None = None):
+               perms: Tensor | None = None, axis=None):
     """rollout + update. Returns (state, env_state, obs, carry, ep_ret, metrics)."""
     traj, env_state, obs, carry, ep_ret, ep_stats = rollout(
         cfg, env, flatten_obs, state, env_state, obs, carry, ep_ret, generator, noise)
-    state, metrics = update(cfg, state, traj, generator, perms)
+    state, metrics = update(cfg, state, traj, generator, perms, axis)
     metrics.update(ep_stats)
     metrics["reward_per_step"] = torch.mean(traj.reward)
     return state, env_state, obs, carry, ep_ret, metrics

@@ -1,5 +1,5 @@
 """surreal-tpu CLI on the PyTorch port: train / eval / bench / envs (port of
-surreal_tpu/cli/main.py, one card).
+surreal_tpu/cli/main.py).
 
 The same flags, recipe defaults and results layout as the reference's CLI:
 `<results_dir>/<experiment_name>/` holds `config.json` (written before
@@ -8,9 +8,20 @@ The run is on "cuda" unless `--device cpu` is given (the reference picks
 its platform with SURREAL_TPU_PLATFORM); the device is not part of
 `config.json`.
 
+`--session.mesh.data N` trains data-parallel over N ranks (the data axis;
+A15b has the others): this command spawns them, one process each, meeting
+at a file store it makes. With `--session.multihost.{coordinator,
+num_processes,process_id}` each launched process runs N / num_processes
+ranks and they meet at the coordinator, host:port. Processes that share a
+host are given LOCAL_RANK, their index among them, and LOCAL_WORLD_SIZE,
+their count, as torchrun gives them: their ranks then take distinct cards,
+and the backend counts every rank of the host (`parallel.mesh`).
+
 Usage:
     python -m surreal_tpu_torch.cli.main train ppo --env.env_name cheetah-run \\
         --session.experiment_name run1 --learner.lr 1e-4
+    python -m surreal_tpu_torch.cli.main train ppo --env.env_name cheetah-run \\
+        --session.mesh.data 2 --device cpu
     python -m surreal_tpu_torch.cli.main eval --experiment results/run1 [--best]
     python -m surreal_tpu_torch.cli.main envs
     python -m surreal_tpu_torch.cli.main bench
@@ -21,10 +32,17 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import sys
+import tempfile
+
+import torch
 
 from surreal_tpu_torch.cli.configs import generate_configs, to_algo_config
 from surreal_tpu_torch.config import Config
+from surreal_tpu_torch.device import resolve as resolve_device
+from surreal_tpu_torch.parallel.mesh import (A15B, distributed_init, host_slots, make_mesh,
+                                             spawn)
 from surreal_tpu_torch.utils import get_logger
 
 
@@ -49,25 +67,47 @@ def _parse_overrides(unknown: list[str]) -> dict:
     return out.to_dict()
 
 
-def _check_ported(session: Config) -> None:
-    """Raises NotImplementedError, naming its ROADMAP.md Queue A item, for a
-    configuration whose path the port does not have yet."""
-    m = session.mesh
-    if (not (m.data is None and int(m.model) == 1 and int(m.time) == 1)
-            or any(v is not None for v in session.multihost.values())):
-        raise NotImplementedError(
-            "not ported yet (ROADMAP.md, Queue A): session.mesh and session.multihost "
-            "other than one device (A15)")
+def _mesh_layout(session: Config, device: str):
+    """session.mesh and session.multihost -> (data, local, first,
+    coordinator), or None for one device (no mesh). This process runs
+    `local` ranks, global ranks first .. first + local - 1, of a data axis
+    of `data`; `coordinator` is where they meet (None: this command's own
+    ranks, which meet at a file store it makes). data='all' (or unset with
+    the multihost flags) means one rank per visible card, one on the CPU,
+    in each process. With the multihost flags each process runs
+    data / num_processes ranks: global rank process_id x local + i, the
+    reference's "a process holds several mesh devices"."""
+    m, mh = session.mesh, session.multihost
+    if int(m.model) != 1 or int(m.time) != 1:
+        raise NotImplementedError(f"session.mesh.model and session.mesh.time > 1: {A15B}")
+    multihost = any(v is not None for v in mh.values())
+    if m.data is None and not multihost:
+        return None
+    if multihost and None in (mh.coordinator, mh.num_processes, mh.process_id):
+        raise ValueError("session.multihost needs coordinator, num_processes and process_id")
+    processes = int(mh.num_processes) if multihost else 1
+    if m.data in (None, "all"):
+        cards = resolve_device(device).type == "cuda"
+        data = (torch.cuda.device_count() if cards else 1) * processes
+    else:
+        data = int(m.data)
+    if data % processes != 0:
+        raise ValueError(f"session.mesh.data {data} is not a multiple of "
+                         f"session.multihost.num_processes {processes}")
+    local = data // processes
+    first = int(mh.process_id) * local if multihost else 0
+    return data, local, first, str(mh.coordinator) if multihost else None
 
 
-def _build_trainer(learner: Config, env_cfg: Config, session: Config, device: str):
+def _build_trainer(learner: Config, env_cfg: Config, session: Config, device: str, mesh=None):
     seed = int(session.seed)
     algo_cfg = to_algo_config(learner)
     # the networks' compute dtype (bfloat16: A13); parameters and the
     # optimizer stay float32, as in the reference
     common = {"device": device, "compute_dtype": str(learner.compute_dtype),
               "pixel_obs": bool(env_cfg.pixel_obs),
-              "pixel_kwargs": env_cfg.pixel.to_dict() if env_cfg.pixel_obs else None}
+              "pixel_kwargs": env_cfg.pixel.to_dict() if env_cfg.pixel_obs else None,
+              "mesh": mesh}
     if learner.algo == "ppo":
         from surreal_tpu_torch.train import PPOTrainer
 
@@ -87,29 +127,82 @@ def _build_trainer(learner: Config, env_cfg: Config, session: Config, device: st
 
 def cmd_train(algo: str, overrides: dict, device: str = "cuda") -> int:
     learner, env_cfg, session = generate_configs(algo, overrides)
-    _check_ported(session)
-    log = get_logger("cli")
+    layout = _mesh_layout(session, device)
+    if layout is None:
+        return _train(algo, learner, env_cfg, session, device, mesh=None)
+    data, local, first, coordinator = layout
+    if data == 1:  # one rank: a mesh without a process group
+        return _train(algo, learner, env_cfg, session, device, make_mesh(1, device=device))
+    store = None
+    if coordinator is None:  # this command's own ranks meet at a file store
+        store = tempfile.mkdtemp(prefix="surreal_tpu_torch_ranks_")
+        coordinator = "file://" + os.path.join(store, "store")
+    args = (algo, overrides, device, data, first, coordinator)
+    try:
+        if local == 1:  # LOCAL_RANK and LOCAL_WORLD_SIZE are the launcher's
+            _train_rank(0, *args)
+        else:
+            # CPU ranks share this process's torch threads
+            cpu = resolve_device(device).type == "cpu"
+            first_slot, on_host = host_slots(local)
+            spawn(_train_rank, local, args, first_slot=first_slot, on_host=on_host,
+                  threads=max(1, torch.get_num_threads() // local) if cpu else None)
+    finally:
+        if store is not None:
+            shutil.rmtree(store, ignore_errors=True)
+    return 0
+
+
+def _train_rank(i: int, algo: str, overrides: dict, device: str, data: int, first: int,
+                coordinator: str) -> None:
+    """Rank first + i of `data`: joins the process group and trains."""
+    import torch.distributed as dist
+
+    distributed_init(coordinator, data, first + i, device=device)
+    try:
+        learner, env_cfg, session = generate_configs(algo, overrides)
+        mesh = make_mesh(data, device=device)
+        get_logger(f"cli.rank{mesh.rank}").info(
+            "rank %d of %d on %s: LOCAL_RANK %s of LOCAL_WORLD_SIZE %s", mesh.rank, data,
+            mesh.device, os.environ.get("LOCAL_RANK", 0), os.environ.get("LOCAL_WORLD_SIZE", 1))
+        _train(algo, learner, env_cfg, session, device, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(algo: str, learner: Config, env_cfg: Config, session: Config, device: str,
+           mesh) -> int:
+    """The training session of one device, or of one rank of a data mesh:
+    only the primary rank writes config.json, the event files, the videos
+    and meta.json; every rank evaluates (their scores are equal, so they
+    make the same best-checkpoint decision) and reaches every collective
+    (the checkpoints' barriers) in the same order."""
+    primary = mesh is None or mesh.primary
+    log = get_logger("cli" if mesh is None else f"cli.rank{mesh.rank}")
 
     exp_dir = os.path.join(session.results_dir, session.experiment_name)
     os.makedirs(exp_dir, exist_ok=True)
-    with open(os.path.join(exp_dir, "config.json"), "w") as f:
-        f.write(
-            json.dumps(
-                {"learner": learner.to_dict(), "env": env_cfg.to_dict(),
-                 "session": session.to_dict()},
-                indent=2, default=str,
+    if primary:
+        with open(os.path.join(exp_dir, "config.json"), "w") as f:
+            f.write(
+                json.dumps(
+                    {"learner": learner.to_dict(), "env": env_cfg.to_dict(),
+                     "session": session.to_dict()},
+                    indent=2, default=str,
+                )
             )
-        )
+        log.info("wrote %s", os.path.join(exp_dir, "config.json"))
 
-    trainer = _build_trainer(learner, env_cfg, session, device)
+    trainer = _build_trainer(learner, env_cfg, session, device, mesh)
 
     from surreal_tpu_torch.train.checkpoint import Checkpointer
     from surreal_tpu_torch.train.metrics import MetricsWriter
 
     ckpt = Checkpointer(
-        os.path.join(exp_dir, "checkpoints"), keep_latest=int(session.keep_latest_checkpoints)
+        os.path.join(exp_dir, "checkpoints"), keep_latest=int(session.keep_latest_checkpoints),
+        mesh=mesh, rank_keys=trainer.rank_keys,
     )
-    tb = MetricsWriter(os.path.join(exp_dir, "tb") if session.tensorboard else None)
+    tb = MetricsWriter(os.path.join(exp_dir, "tb") if session.tensorboard and primary else None)
 
     # ---- resume: the FULL training state (network, optimizer, Z-filter, env
     # batch, replay, generator, counters) survives a kill ----
@@ -155,7 +248,7 @@ def cmd_train(algo: str, overrides: dict, device: str = "cuda") -> int:
             tb.write(env_steps, ev, section="eval")
             log.info("eval @ %.2e steps: %.1f ± %.1f", env_steps, ev["return_mean"],
                      ev["return_std"])
-            pol = trainer.deterministic_policy() if session.video else None
+            pol = trainer.deterministic_policy() if session.video and primary else None
             if pol is not None:  # the reference's eval-worker videos
                 from surreal_tpu_torch.train.video import record_video
 
@@ -180,10 +273,11 @@ def cmd_eval(experiment: str, best: bool, episodes: int, stochastic: bool,
     learner = Config(saved["learner"])
     env_cfg = Config(saved["env"])
     session = Config(saved["session"])
-    _check_ported(session)
+    _mesh_layout(session, device)  # raises for the axes that are not ported
+    # the learner alone, on one device, whatever mesh trained it
     trainer = _build_trainer(learner, env_cfg, session, device)
-    ckpt = Checkpointer(os.path.join(experiment, "checkpoints"))
-    trainer.load_full_state(ckpt.restore(trainer.full_state, best=best))
+    ckpt = Checkpointer(os.path.join(experiment, "checkpoints"), rank_keys=trainer.rank_keys)
+    trainer.load_full_state(ckpt.restore(trainer.full_state, best=best, learner_only=True))
     # eval-deterministic / eval-stochastic agent modes; DDPG is deterministic
     kw = {"stochastic": True} if (stochastic and learner.algo == "ppo") else {}
     result = trainer.evaluate(episodes=episodes, **kw)

@@ -7,6 +7,8 @@ import dataclasses
 
 import torch
 
+from surreal_tpu_torch.parallel.mesh import pmean, psum
+
 Tensor = torch.Tensor
 
 
@@ -25,18 +27,44 @@ def zfilter_init(dim: int, device: torch.device | str, dtype=torch.float32) -> Z
     )
 
 
-def zfilter_update(state: ZFilterState, batch: Tensor) -> ZFilterState:
-    """Merges a batch (..., D) into the running stats."""
-    x = batch.reshape(-1, batch.shape[-1]).to(state.mean.dtype)
-    n = torch.tensor(float(x.shape[0]), dtype=state.count.dtype, device=x.device)
-    mean_b = torch.mean(x, 0)
-    m2_b = torch.sum((x - mean_b) ** 2, 0)
+def zfilter_update_stats(state: ZFilterState, n: Tensor, mean_b: Tensor,
+                         m2_b: Tensor) -> ZFilterState:
+    """Chan et al. merge of precomputed batch stats into the running stats."""
     delta = mean_b - state.mean
     tot = state.count + n
     return ZFilterState(
         count=tot,
         mean=state.mean + delta * (n / tot),
         m2=state.m2 + m2_b + delta**2 * state.count * n / tot,
+    )
+
+
+def zfilter_update(state: ZFilterState, batch: Tensor, axis=None) -> ZFilterState:
+    """Merges a batch (..., D) into the running stats. With `axis` (a data
+    mesh, `parallel.mesh`), the batch statistics are reduced across the
+    ranks first, so every rank applies one identical global update: the
+    mean of the local means, the summed count, and the squared deviations
+    about the global mean, summed."""
+    x = batch.reshape(-1, batch.shape[-1]).to(state.mean.dtype)
+    n = torch.tensor(float(x.shape[0]), dtype=state.count.dtype, device=x.device)
+    mean_b = torch.mean(x, 0)
+    if axis is not None:
+        mean_b = pmean(mean_b, axis)
+        n = psum(n, axis)
+    m2_b = torch.sum((x - mean_b) ** 2, 0)  # about the (global) batch mean
+    if axis is not None:
+        m2_b = psum(m2_b, axis)
+    return zfilter_update_stats(state, n, mean_b, m2_b)
+
+
+def zfilter_merge(a: ZFilterState, b: ZFilterState) -> ZFilterState:
+    """Merges two independent stat states."""
+    delta = b.mean - a.mean
+    tot = a.count + b.count
+    return ZFilterState(
+        count=tot,
+        mean=a.mean + delta * (b.count / tot),
+        m2=a.m2 + b.m2 + delta**2 * a.count * b.count / tot,
     )
 
 

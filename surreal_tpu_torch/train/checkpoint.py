@@ -6,6 +6,14 @@ scalars (a trainer's `full_state`), loaded back with `weights_only=True`
 onto the device of the state it restores into. Each step directory is
 written under a temporary name and renamed into place, so a run killed
 mid-save leaves the previous checkpoints and no partial one.
+
+Under a data mesh every rank calls `save` and `restore`, in the same
+order. The learner, equal on every rank, is written once, by rank 0, to
+`state.pt`; each rank writes its own part (the trainer's `rank_keys`: its
+envs, generator, carry, OU noise, replay shard) to `rank<r>.pt`, and rank
+0 writes `mesh.json`, {"data": S}. A checkpoint restores only into a mesh
+of its data size (a one-device checkpoint into no mesh). Every collective
+(a barrier) is reached by every rank; only the file writes are rank 0's.
 """
 
 from __future__ import annotations
@@ -17,7 +25,10 @@ from typing import Any, Mapping
 
 import torch
 
+from surreal_tpu_torch.parallel.mesh import Mesh, barrier, data_axis_size
+
 STATE_FILE = "state.pt"
+MESH_FILE = "mesh.json"
 
 
 class Checkpointer:
@@ -25,11 +36,16 @@ class Checkpointer:
         <root>/latest/<step>/state.pt   (rolling, keep `keep_latest`)
         <root>/best/<step>/state.pt     (single best by score)
         <root>/meta.json                ({best_score, best_step})
+    and under a mesh, beside each state.pt, rank<r>.pt and mesh.json.
     """
 
-    def __init__(self, root: str, keep_latest: int = 3):
+    def __init__(self, root: str, keep_latest: int = 3, mesh: Mesh | None = None,
+                 rank_keys: tuple[str, ...] = ()):
         self.root = os.path.abspath(root)
         self.keep_latest = keep_latest
+        self.mesh = mesh
+        self.rank_keys = tuple(rank_keys)
+        self._primary = mesh is None or mesh.primary
         self._dirs = {"latest": os.path.join(self.root, "latest"),
                       "best": os.path.join(self.root, "best")}
         for d in self._dirs.values():
@@ -43,36 +59,63 @@ class Checkpointer:
     # ---- save ----
     def save(self, step: int, state: Mapping[str, Any], score: float | None = None) -> None:
         """Save rolling-latest; if `score` beats the best so far, also save
-        to best/ (best-by-eval-reward retention)."""
-        latest = self._publish("latest", step, lambda tmp: torch.save(
-            dict(state), os.path.join(tmp, STATE_FILE)))
+        to best/ (best-by-eval-reward retention). Under a mesh, every rank
+        calls it with its own `state` and the same `score`."""
+        latest = self._publish("latest", step, lambda tmp: self._write(tmp, state))
         self._prune("latest", self.keep_latest)
         if score is not None and (
             self._meta["best_score"] is None or score > self._meta["best_score"]
         ):
-            self._publish("best", step, lambda tmp: shutil.copyfile(
-                os.path.join(latest, STATE_FILE), os.path.join(tmp, STATE_FILE)))
+            def copy(tmp):
+                if self._primary:
+                    for name in os.listdir(latest):
+                        shutil.copyfile(os.path.join(latest, name), os.path.join(tmp, name))
+
+            self._publish("best", step, copy)
             self._prune("best", 1)
             self._meta = {"best_score": float(score), "best_step": int(step)}
-            tmp = self._meta_path + ".tmp"
-            with open(tmp, "w") as f:
-                json.dump(self._meta, f)
-            os.replace(tmp, self._meta_path)
+            if self._primary:
+                tmp = self._meta_path + ".tmp"
+                with open(tmp, "w") as f:
+                    json.dump(self._meta, f)
+                os.replace(tmp, self._meta_path)
+
+    def _write(self, tmp: str, state: Mapping[str, Any]) -> None:
+        if self.mesh is None:
+            torch.save(dict(state), os.path.join(tmp, STATE_FILE))
+            return
+        if self._primary:
+            torch.save({k: v for k, v in state.items() if k not in self.rank_keys},
+                       os.path.join(tmp, STATE_FILE))
+            with open(os.path.join(tmp, MESH_FILE), "w") as f:
+                json.dump({"data": data_axis_size(self.mesh)}, f)
+        torch.save({k: v for k, v in state.items() if k in self.rank_keys},
+                   os.path.join(tmp, f"rank{self.mesh.rank}.pt"))
 
     def _publish(self, kind: str, step: int, write) -> str:
         """Writes a step directory under a temporary name, then renames it
-        into place (replacing an older one of the same step)."""
+        into place (replacing an older one of the same step). Under a mesh,
+        every rank writes into rank 0's temporary directory between
+        barriers."""
         final = os.path.join(self._dirs[kind], str(int(step)))
-        tmp = os.path.join(self._dirs[kind], f".tmp-{int(step)}-{os.getpid()}")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
+        tmp = os.path.join(self._dirs[kind], f".tmp-{int(step)}-{os.getpid()}"
+                           if self.mesh is None else f".tmp-{int(step)}-mesh")
+        if self._primary:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        barrier(self.mesh)
         write(tmp)
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)
+        barrier(self.mesh)
+        if self._primary:
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
+        barrier(self.mesh)
         return final
 
     def _prune(self, kind: str, keep: int) -> None:
+        if not self._primary:
+            return
         for step in self._steps(kind)[:-keep]:
             shutil.rmtree(os.path.join(self._dirs[kind], str(step)))
 
@@ -89,21 +132,39 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, target: Mapping[str, Any], step: int | None = None,
-                best: bool = False) -> dict:
+                best: bool = False, learner_only: bool = False) -> dict:
         """Loads the checkpoint of `step` (the newest if None) from latest/
         or best/ onto the device of `target`'s tensors, and checks that it
-        has `target`'s structure, shapes and dtypes."""
+        has `target`'s structure, shapes and dtypes. Under a mesh, the
+        learner and this rank's part. `learner_only` takes the learner from
+        the checkpoint, whatever mesh wrote it, and `rank_keys` from
+        `target` (an evaluation needs no env batch)."""
         kind = "best" if best else "latest"
         if step is None:
             steps = self._steps(kind)
             step = steps[-1] if steps else None
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self._dirs[kind]}")
-        path = os.path.join(self._dirs[kind], str(int(step)), STATE_FILE)
+        folder = os.path.join(self._dirs[kind], str(int(step)))
+        path = os.path.join(folder, STATE_FILE)
         if not os.path.exists(path):
             raise FileNotFoundError(path)
         device = next((t.device for t in _tensors(target)), torch.device("cpu"))
         state = torch.load(path, weights_only=True, map_location=device)
+        if learner_only:
+            state = {k: v for k, v in state.items() if k not in self.rank_keys}
+            state.update({k: v for k, v in target.items() if k in self.rank_keys})
+        else:
+            written = _mesh_data(folder)
+            here = None if self.mesh is None else data_axis_size(self.mesh)
+            if written != here:
+                raise ValueError(
+                    f"checkpoint {folder} was written by {_describe_mesh(written)} and this "
+                    f"run has {_describe_mesh(here)}: resume it under the same "
+                    "session.mesh.data")
+            if self.mesh is not None:
+                state.update(torch.load(os.path.join(folder, f"rank{self.mesh.rank}.pt"),
+                                        weights_only=True, map_location=device))
         _check_like(state, target, "state")
         return state
 
@@ -113,6 +174,19 @@ class Checkpointer:
 
     def close(self) -> None:
         self.wait()
+
+
+def _mesh_data(folder: str) -> int | None:
+    """The data axis size that wrote a step directory; None for one device."""
+    path = os.path.join(folder, MESH_FILE)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return int(json.load(f)["data"])
+
+
+def _describe_mesh(data: int | None) -> str:
+    return "one device (no mesh)" if data is None else f"a data mesh of {data}"
 
 
 def _tensors(tree):

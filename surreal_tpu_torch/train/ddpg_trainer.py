@@ -1,24 +1,28 @@
-"""Single-device DDPG trainer (port of surreal_tpu/train/ddpg_trainer.py
-without the mesh path): builds the env batch, pixel-wrapped or not, the
-four networks and the replay ring on the device, then runs train steps.
-Pixel frames are stored raw, uint8, in the ring and scaled inside the conv
+"""DDPG trainer (port of surreal_tpu/train/ddpg_trainer.py): builds the env
+batch, pixel-wrapped or not, the four networks and the replay ring on the
+device, then runs train steps, on one device or, given a data `mesh`
+(`parallel.mesh`), on this rank's share of the envs with its shard of the
+ring and of the noise ladder (`parallel.dp.make_sharded_ddpg_step`). Pixel
+frames are stored raw, uint8, in the ring and scaled inside the conv
 stems; the Z-filter stays off for them."""
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from surreal_tpu_torch.algos import ddpg
 from surreal_tpu_torch.data.replay import ReplayState
-from surreal_tpu_torch.device import resolve as resolve_device
 from surreal_tpu_torch.envs import base as env_base
 from surreal_tpu_torch.envs import make_env
 from surreal_tpu_torch.envs.wrappers import PixelWrapper, pixel_flatten_obs
 from surreal_tpu_torch.models.blocks import resolve_dtype
 from surreal_tpu_torch.models.ddpg_nets import DDPGActor, DDPGCritic
 from surreal_tpu_torch.models.z_filter import ZFilterState
+from surreal_tpu_torch.parallel import dp
+from surreal_tpu_torch.parallel.mesh import MODEL_AXIS, TIME_AXIS
 from surreal_tpu_torch.train.evaluator import evaluate_policy
 from surreal_tpu_torch.train.loop import (
     Trainer,
@@ -32,6 +36,7 @@ NETS = ("actor", "critic", "target_actor", "target_critic")
 
 class DDPGTrainer(Trainer):
     default_log_every = 50  # the reference's default: DDPG's iterations are short
+    rank_keys = Trainer.rank_keys + ("replay", "ou_state")
 
     def __init__(self, env_name: str, cfg: ddpg.DDPGConfig | None = None, num_envs: int = 128,
                  seed: int = 0, actor_hidden=(300, 200), critic_hidden=(400, 300),
@@ -39,10 +44,14 @@ class DDPGTrainer(Trainer):
                  compute_dtype: str | torch.dtype = torch.float32, pixel_obs: bool = False,
                  pixel_kwargs: dict | None = None, env_kwargs: dict | None = None,
                  debug_checks: bool = False, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("mesh is not ported yet (ROADMAP.md, Queue A)")
         cfg = cfg or ddpg.DDPGConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        shards = self._check_mesh(num_envs, debug_checks)
+        for ax in (MODEL_AXIS, TIME_AXIS):
+            if mesh is not None and mesh.shape.get(ax, 1) > 1:  # as the reference's
+                raise ValueError(f"mesh.{ax} > 1 is a PPO-only feature; the DDPG "
+                                 "trainer supports the data axis only")
+        self.device = self._resolve_device(device)
         self.env = make_env(env_name, device=self.device, **(env_kwargs or {}))
         if pixel_obs:
             self.env = PixelWrapper(self.env, **(pixel_kwargs or {}))
@@ -76,15 +85,26 @@ class DDPGTrainer(Trainer):
             ddpg.sync_encoder(actor, critic)
         self.state = ddpg.init_state(self.cfg, actor.to(self.device), critic.to(self.device),
                                      obs_dim)
+        # the ring is as deep as the global num_envs make it; a rank holds
+        # its envs' columns
         self.replay = ddpg.init_replay(self.cfg, num_envs, obs_dim, act_dim, self.device,
-                                       **layout)
+                                       **layout, shards=shards)
         self.sigma = torch.as_tensor(ddpg.noise_ladder(self.cfg, num_envs), device=self.device)
         self.env_state, ts0 = self.env.reset(num_envs, self.generator)
         self.obs = self._flatten(ts0.obs)
         self.ou_state = torch.zeros(num_envs, act_dim, device=self.device)
         self.ep_ret = torch.zeros(num_envs, dtype=torch.float32, device=self.device)
+        self.local_envs = num_envs
         self.global_iter = 0
         self.debug_checks = debug_checks
+        if mesh is not None:
+            self._shard(seed)
+            self.sigma, self.ou_state = dp.shard_env_batch(mesh, (self.sigma, self.ou_state))
+            self._step = dp.make_sharded_ddpg_step(self.cfg, self.env, self._flatten,
+                                                   mesh)(self.replay)
+            self.state = dp.place_by_spec(mesh, self.state, dp.train_state_spec(self.state))
+        else:
+            self._step = functools.partial(ddpg.train_step, self.cfg, self.env, self._flatten)
 
     @property
     def steps_per_iteration(self) -> int:
@@ -122,11 +142,19 @@ class DDPGTrainer(Trainer):
         self.ou_state = fs["ou_state"]
         self._load_run_state(fs)
 
+    def _fresh_episodes(self) -> None:
+        # a fresh exploration process, as at every episode end; and the
+        # ring's last stored step ends its episode, so no n-step window
+        # bootstraps across the restart
+        self.ou_state = torch.zeros_like(self.ou_state)
+        if self.replay.total > 0:
+            self.replay.data["done"][(self.replay.total - 1) % self.replay.capacity_t] = True
+
     def _iterate(self) -> dict:
         (self.state, self.replay, self.env_state, self.obs, self.ou_state, self.ep_ret,
-         metrics) = ddpg.train_step(
-            self.cfg, self.env, self._flatten, self.state, self.replay, self.env_state,
-            self.obs, self.ou_state, self.sigma, self.ep_ret, self.generator)
+         metrics) = self._step(
+            self.state, self.replay, self.env_state, self.obs, self.ou_state, self.sigma,
+            self.ep_ret, self.generator)
         metrics["updates"] = self.state.update_step  # a host count: no device read
         return metrics
 

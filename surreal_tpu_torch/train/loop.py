@@ -1,6 +1,7 @@
 """The loop the trainers share: iterate, sum the episode returns on the
-device, and read the metrics on the host once per log interval; and the
-parts of a trainer's full state that every trainer has."""
+device, and read the metrics on the host once per log interval; the parts
+of a trainer's full state that every trainer has; and, given a data mesh,
+the share of the env batch that is this rank's."""
 
 from __future__ import annotations
 
@@ -12,9 +13,12 @@ import numpy as np
 import torch
 
 from surreal_tpu_torch.algos.ppo import AdamState
+from surreal_tpu_torch.device import resolve as resolve_device
 from surreal_tpu_torch.envs.base import EnvState
 from surreal_tpu_torch.envs.gym_adapter import GymEnv
 from surreal_tpu_torch.models.z_filter import ZFilterState
+from surreal_tpu_torch.parallel import dp
+from surreal_tpu_torch.parallel.mesh import Mesh, data_axis_size
 from surreal_tpu_torch.utils import guards
 
 log = logging.getLogger("surreal_tpu_torch.train")
@@ -24,9 +28,15 @@ class Trainer:
     """A trainer sets `device`, `env`, `_flatten`, `generator`, `env_state`,
     `obs`, `ep_ret`, `global_iter`, `steps_per_iteration` and
     `debug_checks`, and implements `_iterate` and `full_state` /
-    `load_full_state`."""
+    `load_full_state`. With a data `mesh`, the env batch is this rank's
+    share (`local_envs` of them); the learner is replicated."""
 
     default_log_every = 10
+    # The full state's keys that are this rank's own under a mesh (the rest,
+    # the learner, is equal on every rank): a checkpoint keeps one per rank.
+    rank_keys = ("env_state", "obs", "ep_ret", "generator")
+    mesh: Mesh | None = None
+    local_envs: int
     device: torch.device
     generator: torch.Generator
     env_state: EnvState  # or a wrapper's state with the same to_dict / from_dict
@@ -50,6 +60,43 @@ class Trainer:
         tensors (it rebuilds nothing)."""
         raise NotImplementedError
 
+    def _resolve_device(self, device) -> torch.device:
+        """The mesh's device for this rank, else `device` ("cuda" by default)."""
+        if self.mesh is None:
+            return resolve_device(device)
+        if device is not None and torch.device(device).type != self.mesh.device.type:
+            raise ValueError(f"device {device} is not the mesh's {self.mesh.device}")
+        return self.mesh.device
+
+    def _check_mesh(self, num_envs: int, debug_checks: bool) -> int:
+        """The checks both trainers make of a mesh, as the reference's do;
+        returns the data axis size (1 without a mesh)."""
+        if self.mesh is None:
+            return 1
+        if debug_checks:
+            raise ValueError("debug_checks is single-device only")
+        shards = data_axis_size(self.mesh)
+        if num_envs % shards != 0:
+            raise ValueError(f"num_envs={num_envs} not divisible by data axis {shards}")
+        return shards
+
+    def _shard(self, seed: int) -> None:
+        """Keeps this rank's slice of the env batch, drawn whole from the
+        shared seed, and moves its generator to the rank's stream
+        (`parallel.dp.fold_in`)."""
+        if isinstance(self.env, GymEnv):
+            raise ValueError("a data mesh shards the device envs; gym: envs step on the host "
+                             "as one batch")
+        mesh = self.mesh
+        self.local_envs = self.num_envs // data_axis_size(mesh)
+        self.generator = dp.fold_in(self.generator, seed, mesh.rank)
+        self.env_state, self.obs, self.ep_ret = dp.shard_env_batch(
+            mesh, (self.env_state, self.obs, self.ep_ret))
+
+    def _fresh_episodes(self) -> None:
+        """What else belongs to an episode, set as a new episode starts it,
+        after a resume restarted the host envs (each trainer's own)."""
+
     def _run_state(self) -> dict:
         """The full state's share of the env batch (with pixels, the frame
         stack too), the RNG and the counter."""
@@ -62,10 +109,12 @@ class Trainer:
         self.global_iter = int(fs["global_iter"])
         if isinstance(self.env, GymEnv):
             # The host envs' state lives in gymnasium and cannot be restored:
-            # they start again from their seed, with the learner restored.
+            # they start again from their seed, with the learner restored, and
+            # so does everything that belongs to their episodes.
             self.env_state, ts = self.env.reset(self.env.num_envs, self.generator)
             self.obs = self._flatten(ts.obs)
             self.ep_ret = torch.zeros_like(self.ep_ret)
+            self._fresh_episodes()
             return
         # the trainer's own env state (from its reset) says which kind to rebuild
         self.env_state = type(self.env_state).from_dict(fs["env_state"])

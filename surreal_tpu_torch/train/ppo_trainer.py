@@ -1,18 +1,21 @@
-"""Single-device PPO trainer (port of surreal_tpu/train/ppo_trainer.py
-without the mesh path): builds the env batch from a name (a "gym:" name
-gets `num_envs` as its default env kwarg) or takes a pre-built env,
-pixel-wrapped or not, and the network, feed-forward or recurrent, in its
-compute dtype, then runs train steps, fused or overlapped (`overlap`: the
-update of iteration k consumes the trajectory of iteration k - 1)."""
+"""PPO trainer (port of surreal_tpu/train/ppo_trainer.py): builds the env
+batch from a name (a "gym:" name gets `num_envs` as its default env kwarg)
+or takes a pre-built env, pixel-wrapped or not, and the network,
+feed-forward or recurrent, in its compute dtype, then runs train steps,
+fused or overlapped (`overlap`: the update of iteration k consumes the
+trajectory of iteration k - 1), on one device or, given a data `mesh`
+(`parallel.mesh`), on this rank's share of the envs with the sharded steps
+of `parallel.dp` (the reference's tensor-parallel and time-sharded paths
+are A15b)."""
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from surreal_tpu_torch.algos import ppo, ppo_lstm
-from surreal_tpu_torch.device import resolve as resolve_device
 from surreal_tpu_torch.envs import base as env_base
 from surreal_tpu_torch.envs import make_env
 from surreal_tpu_torch.envs.wrappers import PixelWrapper, pixel_flatten_obs
@@ -20,6 +23,8 @@ from surreal_tpu_torch.models.actor_critic import PPOActorCritic
 from surreal_tpu_torch.models.blocks import resolve_dtype
 from surreal_tpu_torch.models.distributions import DiagGauss
 from surreal_tpu_torch.models.z_filter import ZFilterState
+from surreal_tpu_torch.parallel import dp
+from surreal_tpu_torch.parallel.mesh import A15B, MODEL_AXIS, TIME_AXIS
 from surreal_tpu_torch.train.evaluator import evaluate_policy
 from surreal_tpu_torch.train.loop import (
     Trainer,
@@ -30,6 +35,8 @@ from surreal_tpu_torch.train.loop import (
 
 
 class PPOTrainer(Trainer):
+    rank_keys = Trainer.rank_keys + ("carry",)
+
     def __init__(self, env_name: str | env_base.Environment, cfg: ppo.PPOConfig | None = None,
                  num_envs: int = 256, seed: int = 0, hidden=(64, 64),
                  device: str | torch.device | None = None,
@@ -37,14 +44,18 @@ class PPOTrainer(Trainer):
                  pixel_obs: bool = False, pixel_kwargs: dict | None = None,
                  use_lstm: bool = False, lstm_size: int = 128, env_kwargs: dict | None = None,
                  debug_checks: bool = False, mesh=None, overlap: bool = False):
-        if mesh is not None:
-            raise NotImplementedError("mesh is not ported yet (ROADMAP.md, Queue A)")
         if overlap and use_lstm:
             raise ValueError("overlap does not compose with use_lstm")
         self.overlap = overlap
         self._pending = None  # overlap: the trajectory awaiting its update
         cfg = cfg or ppo.PPOConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._check_mesh(num_envs, debug_checks)
+        if mesh is not None and (mesh.shape.get(MODEL_AXIS, 1) > 1
+                                 or mesh.shape.get(TIME_AXIS, 1) > 1 or cfg.zero_optimizer):
+            raise NotImplementedError(f"mesh.model, mesh.time > 1 and zero_optimizer on a "
+                                      f"mesh: {A15B}")
+        self.device = self._resolve_device(device)
         if isinstance(env_name, str):
             env_kwargs = dict(env_kwargs or {})
             if env_name.startswith("gym:"):
@@ -73,11 +84,28 @@ class PPOTrainer(Trainer):
                              compute_dtype=resolve_dtype(compute_dtype)).to(self.device)
         self.env_state, ts0 = self.env.reset(num_envs, self.generator)
         self.obs = self._flatten(ts0.obs)
+        self.local_envs = num_envs
         self.carry = net.initial_carry((num_envs,))  # None without an LSTM
         self.state = ppo.init_state(self.cfg, net, obs_dim)
         self.ep_ret = torch.zeros(num_envs, dtype=torch.float32, device=self.device)
         self.global_iter = 0
         self.debug_checks = debug_checks
+        if mesh is not None:
+            self._shard(seed)
+            if overlap:
+                self._step, self._prime = dp.make_sharded_ppo_overlap_step(
+                    self.cfg, self.env, self._flatten, mesh)
+            else:
+                maker = dp.make_sharded_ppo_lstm_step if use_lstm else dp.make_sharded_ppo_step
+                self._step = maker(self.cfg, self.env, self._flatten, mesh)
+            self.state = dp.place_by_spec(mesh, self.state, dp.train_state_spec(self.state))
+            if use_lstm:
+                self.carry = dp.shard_env_batch(mesh, self.carry)
+        else:  # one device: the algorithm's own steps
+            self._step = (ppo.train_step_overlapped if overlap else
+                          ppo_lstm.train_step if use_lstm else ppo.train_step)
+            self._step = functools.partial(self._step, self.cfg, self.env, self._flatten)
+            self._prime = functools.partial(ppo.rollout, self.cfg, self.env, self._flatten)
 
     @property
     def steps_per_iteration(self) -> int:
@@ -116,32 +144,32 @@ class PPOTrainer(Trainer):
         self._load_run_state(fs)
         self._pending = None  # overlap: primed again by the next run()
 
+    def _fresh_episodes(self) -> None:
+        if self.use_lstm:  # the carry of a new episode, as the rollout sets it
+            self.carry = self.state.net.initial_carry((self.local_envs,))
+
     def run(self, iterations: int, log_every: int | None = None, metric_sink=None) -> list[dict]:
         """With `overlap`, the first call (and the first after
         `load_full_state`) primes the double buffer with one rollout on the
         current parameters; its env steps are not counted (`env_steps` is
         `global_iter` x `steps_per_iteration`, as in the reference)."""
         if self.overlap and self._pending is None:
-            self._pending, self.env_state, self.obs, self.ep_ret, _ = ppo.rollout(
-                self.cfg, self.env, self._flatten, self.state, self.env_state, self.obs,
-                self.ep_ret, self.generator)
+            self._pending, self.env_state, self.obs, self.ep_ret = self._prime(
+                self.state, self.env_state, self.obs, self.ep_ret, self.generator)[:4]
         return super().run(iterations, log_every, metric_sink)
 
     def _iterate(self) -> dict:
         if self.overlap:
             (self.state, self.env_state, self.obs, self.ep_ret, self._pending,
-             metrics) = ppo.train_step_overlapped(
-                self.cfg, self.env, self._flatten, self.state, self.env_state, self.obs,
-                self.ep_ret, self._pending, self.generator)
+             metrics) = self._step(self.state, self.env_state, self.obs, self.ep_ret,
+                                   self._pending, self.generator)
         elif self.use_lstm:
             (self.state, self.env_state, self.obs, self.carry, self.ep_ret,
-             metrics) = ppo_lstm.train_step(
-                self.cfg, self.env, self._flatten, self.state, self.env_state, self.obs,
-                self.carry, self.ep_ret, self.generator)
+             metrics) = self._step(self.state, self.env_state, self.obs, self.carry,
+                                   self.ep_ret, self.generator)
         else:
-            self.state, self.env_state, self.obs, self.ep_ret, metrics = ppo.train_step(
-                self.cfg, self.env, self._flatten, self.state, self.env_state, self.obs,
-                self.ep_ret, self.generator)
+            self.state, self.env_state, self.obs, self.ep_ret, metrics = self._step(
+                self.state, self.env_state, self.obs, self.ep_ret, self.generator)
         return metrics
 
     def _describe(self, m: dict) -> str:

@@ -202,3 +202,52 @@ def test_resumed_gym_run_restores_the_learner_not_the_envs(tmp_path):
     first.run(1, log_every=1)
     resumed.run(1, log_every=1)
     assert not torch.equal(first.obs, resumed.obs)
+
+
+@pytest.mark.parametrize("kind", ["lstm_ppo", "ddpg"])
+def test_resumed_gym_run_starts_fresh_episodes(tmp_path, kind):
+    """What belongs to the host envs' old episodes starts fresh with the new
+    ones, as at any episode start: LSTM-PPO's carry is `initial_carry`;
+    DDPG's OU noise is zero and the ring's last stored step ends its
+    episode (done), so no n-step window bootstraps across the restart. The
+    learner, and the rest of the ring, are restored bit for bit."""
+    pytest.importorskip("gymnasium")
+
+    def make(seed):
+        if kind == "lstm_ppo":
+            return PPOTrainer("gym:Pendulum-v1", PPOConfig(horizon=8, epochs=2, num_minibatches=2),
+                              num_envs=4, seed=seed, hidden=(16, 16), use_lstm=True,
+                              lstm_size=8, device="cpu")
+        cfg = DDPGConfig(rollout_steps=4, updates_per_iteration=2, batch_size=8, min_replay=16,
+                         replay_capacity=256)
+        return DDPGTrainer("gym:Pendulum-v1", cfg, num_envs=4, seed=seed, device="cpu",
+                           actor_hidden=(16, 16), critic_hidden=(16, 16),
+                           env_kwargs={"num_envs": 4})
+
+    first = make(0)
+    first.run(3, log_every=3)
+    ck = Checkpointer(str(tmp_path / "ck"))
+    ck.save(3, first.full_state)
+    saved = ck.restore(first.full_state)
+    resumed = make(123)
+    resumed.load_full_state(ck.restore(resumed.full_state))
+    fs = resumed.full_state
+    learner = [k for k in saved if k not in resumed.rank_keys] + ["generator"]
+    for key in learner:
+        _assert_equal_states(fs[key], saved[key])
+    if kind == "lstm_ppo":
+        assert saved["carry"][0].abs().sum() > 0
+        _assert_equal_states(list(resumed.carry),
+                             list(resumed.state.net.initial_carry((4,))))
+        return
+    assert saved["ou_state"].abs().sum() > 0 and torch.equal(fs["ou_state"], torch.zeros(4, 1))
+    last = (saved["replay"]["total"] - 1) % resumed.replay.capacity_t
+    assert saved["replay"]["total"] == fs["replay"]["total"] == 12
+    assert not saved["replay"]["data"]["done"][last].any()
+    assert fs["replay"]["data"]["done"][last].all()
+    rest = torch.ones(resumed.replay.capacity_t, dtype=torch.bool)
+    rest[last] = False
+    for k, buf in fs["replay"]["data"].items():
+        assert torch.equal(buf[rest], saved["replay"]["data"][k][rest]), k
+        if k != "done":
+            assert torch.equal(buf[last], saved["replay"]["data"][k][last]), k

@@ -133,10 +133,12 @@ def test_envs_lists_the_registry(capsys):
     assert len(available_envs()) == 26
 
 
+# The data axis and the multihost flags are ported (A15a: tests/test_torch_dp_cli.py);
+# each knob below is refused beside an axis that is not (A15b).
 @pytest.mark.parametrize("flags,item", [
-    (["--session.mesh.data", "2"], "A15"),
-    (["--session.mesh.model", "2"], "A15"),
-    (["--session.multihost.num_processes", "2"], "A15"),
+    (["--session.mesh.data", "2", "--session.mesh.time", "2"], "A15b"),
+    (["--session.mesh.model", "2"], "A15b"),
+    (["--session.multihost.num_processes", "2", "--session.mesh.model", "2"], "A15b"),
 ], ids=lambda x: x if isinstance(x, str) else "_".join(x))
 def test_unported_knobs_raise_naming_their_item(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):

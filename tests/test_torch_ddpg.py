@@ -343,8 +343,12 @@ def test_trainer_evaluate_and_refused_options():
     assert out["return_min"] <= out["return_mean"] <= out["return_max"]
     policy, zf = tr.deterministic_policy()
     assert zf is None and policy(tr.obs).shape == (4, ACT_DIM)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DDPGTrainer("cheetah-run", device="cpu", mesh=object())
+    from surreal_tpu_torch.parallel.mesh import Mesh
+
+    model_axis = Mesh(shape={"data": 1, "model": 2, "time": 1}, rank=0, world_size=2,
+                      device=torch.device("cpu"), group=None)
+    with pytest.raises(ValueError, match="data axis only"):  # as the reference's trainer
+        DDPGTrainer("cheetah-run", device="cpu", mesh=model_axis)
     with pytest.raises(RuntimeError, match="CUDA"):
         if torch.cuda.is_available():
             raise RuntimeError("CUDA present: the default device resolves")

@@ -241,8 +241,12 @@ def test_trainer_evaluate_and_refused_options():
         assert out["episodes"] == 3 and all(np.isfinite(v) for v in out.values())
     policy, zf = tr.deterministic_policy()
     assert policy(tr.obs).shape == (4, 6) and zf is tr.state.zfilter
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PPOTrainer("cheetah-run", device="cpu", mesh=object())
+    from surreal_tpu_torch.parallel.mesh import Mesh
+
+    model_axis = Mesh(shape={"data": 1, "model": 2, "time": 1}, rank=0, world_size=2,
+                      device=torch.device("cpu"), group=None)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):  # A15b
+        PPOTrainer("cheetah-run", device="cpu", mesh=model_axis)
 
 
 def test_publish_every_matches_reference():
