@@ -7,6 +7,7 @@
     python3 chip_smoke.py --gae-sweep
     python3 chip_smoke.py --learn [DIR] [cheetah-run] [CLI FLAGS]
     python3 chip_smoke.py --dp
+    python3 chip_smoke.py --axes
 
 Phases, each of which exits non-zero on failure:
   1. prints the card (nvidia-smi name, power limit) and the torch version;
@@ -26,7 +27,7 @@ Phases, each of which exits non-zero on failure:
      batched cheetah env step on the card against the CPU;
   5. runs the main path, PPO on cheetah-run at bench.py's configuration
      (256 envs, (256, 256) MLP, horizon 128, 4 epochs x 8 minibatches,
-     fused loss), for 1 warm-up and 3 timed iterations, and checks from the
+     fused loss), for 1 warm-up and 2 timed iterations, and checks from the
      launch counters that every iteration launched the loss forward and
      backward kernels 32 times each and the GAE kernel never (the
      reference's PPO takes its default GAE, the XLA scan);
@@ -104,11 +105,11 @@ Phases, each of which exits non-zero on failure:
      launch, and one block of 2 updates on identical inputs (shift offsets
      injected) on the card and the CPU;
  16. the pixel CLI: `train ppo --env.env_name cheetah-run --env.pixel_obs
-     true --session.video true` at the recipe for two iterations (the loss
-     32 + 32 launches an iteration from the counters), the eval video read
+     true --session.video true` at the recipe for one iteration (the loss
+     32 + 32 launches from the counters), the eval video read
      back to its frames, and `eval --best`;
  17. PPO on cheetah-run at bench.py's configuration with bfloat16 networks
-     (parameters float32) and the fused loss, 1 warm-up and 3 timed
+     (parameters float32) and the fused loss, 1 warm-up and 2 timed
      iterations: the launch counters as in phase 5, and the loss kernels
      held against their plain versions on the path's own first minibatch
      (the float32 outputs of the bfloat16 heads);
@@ -118,7 +119,7 @@ Phases, each of which exits non-zero on failure:
      parameter within the Adam steps' reach and all but a fifth within
      1e-5 (tests/test_torch_bf16_updates.py's bars);
  19. the overlapped PPO step at bench.py's configuration: the priming
-     rollout and 3 iterations, each checked to update on the trajectory
+     rollout and a first iteration, then 2 more, each checked to update on the trajectory
      the previous call returned and to launch each loss kernel 32 times
      and GAE never, each timed beside one iteration of phase 5's fused
      step, in turns;
@@ -169,7 +170,7 @@ Phases, each of which exits non-zero on failure:
      hung rank fails the run. Phases 28-32 run in one pair of gloo ranks
      sharing the card (NCCL refuses two ranks on one device):
  28. the flagship PPO (256 envs, 128 a rank, minibatches of 2,048 rows)
-     for 3 iterations: each rank's s per iteration, env-steps/s over both,
+     for 2 iterations: each rank's s per iteration, env-steps/s over both,
      the parameters, lr_scale, kl_beta and update_step equal across ranks,
      each loss kernel 32 times an iteration a rank and GAE never (the
      counters set to 0 in each rank before it); then one more iteration
@@ -190,15 +191,49 @@ Phases, each of which exits non-zero on failure:
      subprocess, at the cartpole-balance recipe's width: 2 iterations with
      a checkpoint each, the same stopped after 1 and resumed, the two last
      checkpoints equal bit for bit, config.json written once, the ranks'
-     evaluations equal, and `eval` of the checkpoint.
-Phases 6 to 9, 11, 12, 14 to 24, 26 to 34 print one JSON object each
+     evaluations equal, and `eval` of the checkpoint. Its runs go at once
+     with phase 38's and 39's, after phase 27.
+Phases 35-37 run in one more pair of gloo ranks sharing the card, which
+make a data 2, a time 2 and a model 2 mesh in turn over their group:
+ 35. ZeRO: the flagship at data 2 with `zero_optimizer`, in turns with the
+     replicated run from the same seed, 3 iterations each: the two learners
+     bit for bit equal, 71,303 moment floats a rank, 32 + 32 loss launches
+     an iteration a rank and GAE never, the all_gathers timed; then DDPG's
+     recipe (phase 32's cell) with and without ZeRO, 6 iterations in turns,
+     bit for bit;
+ 36. the time axis: the flagship at data 1 x time 2 for 3 iterations, the
+     ranks' learners bitwise equal, 32 + 32 launches an iteration; the GAE
+     scan split over time against `gae` on one rollout (1e-5 relative); a
+     time-sharded update on the card against the CPU's (1e-5);
+ 37. the model axis: the flagship at data 1 x model 2 (71,821 parameter
+     floats a rank): its first rollout step's means and values within
+     1e-5 of the one-device trainer's from the same seed, its first update
+     within 1e-5 of the one-device update of the same trajectory, and the
+     whole first iteration within TP_ITERATION_TOL of the one-device one,
+     a limit that a planted rollout fault (the noise of the wrong rows) is
+     checked to exceed; 3 iterations, 32
+     + 32 launches each; one more split into rollout and update with the
+     collectives counted and timed per rollout step and per minibatch step;
+     one bfloat16 iteration;
+ 38. `python -m surreal_tpu_torch.dryrun 2 cuda`: the reference's six
+     layouts (dp, dp + zero, dp + lstm, dp x time, dp x model, dp (ddpg));
+ 39. `train ppo` through the CLI at the cartpole-balance recipe's width
+     under `--session.mesh.model 2`, `--session.mesh.time 2` and
+     `--session.mesh.data 2 --learner.zero_optimizer true`, 2 iterations
+     each, the ZeRO run stopped after 1 and resumed: its last
+     checkpoint bit for bit phase 34's uninterrupted replicated run's; the
+     ranks' evaluations equal. The dry run and the CLI runs of phases 34
+     and 39 (five chains of commands) go at once, each command's 2 ranks
+     sharing the card, after phase 27: no profile runs beside them. Each
+     phase's wall time is printed.
+Phases 6 to 9, 11, 12, 14 to 24, 26 to 39 print one JSON object each
 (three in phase 26), phases 10 and 13 one per task. The whole run's time
 follows; the line before the card's is a JSON object with one entry per
 kernel (GAE, on no trainer path since the reference's default is the XLA
 scan, is still held by phases 3, 4 and 25); the last line is {"ok": true,
 "device": {...}}.
 
-With --dp, phases 1, 2 and 28-34 run alone.
+With --dp, phases 1, 2 and 28-39 run alone; with --axes, 1, 2 and 35-39.
 With --loss-timing, only phase 1 and the autograd timing of phase 3 run,
 on the surreal_tpu_torch package under ROOT (default: this checkout), so
 two versions of the package can be timed in turns in one run on one card.
@@ -636,7 +671,7 @@ def phase_slice(dev):
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
         k.launches = 0
-    warm_iters, timed_iters = 1, 3
+    warm_iters, timed_iters = 1, 2
     t0 = time.perf_counter()
     trainer.run(warm_iters, log_every=warm_iters)  # raises on non-finite metrics
     torch.cuda.synchronize()
@@ -1902,8 +1937,8 @@ def phase_pixel_ddpg(dev):
 
 def phase_cli_pixel(dev) -> dict:
     """`train ppo --env.env_name cheetah-run --env.pixel_obs true` through
-    the CLI at the recipe with the fused loss for two iterations, a
-    checkpoint each, with `--session.video true`: the evaluation at the end
+    the CLI at the recipe with the fused loss for one iteration and its
+    checkpoint, with `--session.video true`: the evaluation at the end
     records one GIF of video_steps frames, which must decode (by the port's
     own reader: the card's machine has no imaging package) to that many
     168 x 168 frames; then `eval --best`. Returns the loss kernels' launches
@@ -1923,7 +1958,7 @@ def phase_cli_pixel(dev) -> dict:
             t0 = time.perf_counter()
             cli_stdout(["train", "ppo", "--env.env_name", "cheetah-run", "--env.pixel_obs",
                         "true", "--learner.fused_loss", "true", "--session.total_env_steps",
-                        str(2 * PIXEL_ITER), "--session.eval_every_steps", str(2 * PIXEL_ITER),
+                        str(PIXEL_ITER), "--session.eval_every_steps", str(PIXEL_ITER),
                         "--session.checkpoint_every_steps", str(PIXEL_ITER),
                         "--session.video", "true", "--session.video_steps", str(video_steps),
                         "--session.results_dir", root, "--session.experiment_name", "pixel",
@@ -1931,20 +1966,20 @@ def phase_cli_pixel(dev) -> dict:
             torch.cuda.synchronize()
             t1 = time.perf_counter()
         launches = {n: k.launches for n, k in kernels.items()}
-        gif = os.path.join(exp, "videos", f"steps_{2 * PIXEL_ITER}.gif")
+        gif = os.path.join(exp, "videos", f"steps_{PIXEL_ITER}.gif")
         frames = read_gif(gif) if os.path.exists(gif) else None
         with open(os.path.join(exp, "config.json")) as f:
             saved = json.load(f)
         ev = json.loads(cli_stdout(["eval", "--experiment", exp, "--best", "--episodes", "16",
                                     "--device", str(dev)]).strip().splitlines()[-1])
-        out.update(train_2_iterations_with_eval_and_video_s=t1 - t0, kernel_launches=launches,
+        out.update(train_1_iteration_with_eval_and_video_s=t1 - t0, kernel_launches=launches,
                    evals=evals_logged(lines), video=[m for m in lines if m.startswith("video")],
                    gif_bytes=os.path.getsize(gif) if frames is not None else None,
                    gif_frames=None if frames is None else list(frames.shape),
                    pixel_config=saved["env"]["pixel"], learner_lr=saved["learner"]["lr"],
                    eval_best=ev, phase_s=time.perf_counter() - t_phase)
         print(json.dumps(out))
-        want = {"gae": 0, "ppo_loss_fwd": 64, "ppo_loss_bwd": 64}
+        want = {"gae": 0, "ppo_loss_fwd": 32, "ppo_loss_bwd": 32}
         if launches != want:
             fail(f"the CLI pixel path launched {launches}, expected {want}")
         if frames is None or frames.shape != (video_steps, 168, 168, 3):
@@ -2069,7 +2104,7 @@ def synthetic_trajectory(T, B, A, obs_dim, rng, lstm_size=0) -> dict:
 
 def phase_bf16(dev):
     """PPO on cheetah-run at bench.py's configuration with bfloat16
-    networks and the fused loss, 1 warm-up and 3 timed iterations; checks
+    networks and the fused loss, 1 warm-up and 2 timed iterations; checks
     from the counters, set to 0 before it, that each iteration launched each
     loss kernel 32 times and GAE never, and holds the loss kernels against
     their plain versions on the path's own first minibatch (float32 outputs
@@ -2101,14 +2136,14 @@ def phase_bf16(dev):
         t.run(1, log_every=1)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        logs = t.run(3, log_every=1)
+        logs = t.run(2, log_every=1)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         launches = {n: k.launches for n, k in kernels.items()}
     finally:
         plk.fused_clip_loss = fused
     peak = torch.cuda.max_memory_allocated()
-    want = {"gae": 0, "ppo_loss_fwd": 32 * 4, "ppo_loss_bwd": 32 * 4}
+    want = {"gae": 0, "ppo_loss_fwd": 32 * 3, "ppo_loss_bwd": 32 * 3}
     if launches != want:
         fail(f"bf16 path launch counts {launches} != {want}")
     batch = captured["batch"]
@@ -2214,7 +2249,8 @@ def phase_bf16_parity(dev):
 
 def phase_overlap(dev, fused_trainer):
     """PPO on cheetah-run at bench.py's configuration with the overlapped
-    step and the fused loss: the priming rollout, then 3 iterations, each
+    step and the fused loss: the priming rollout and a first iteration,
+    then 2 more, each
     checked to update on the trajectory the previous call returned, and
     each launching each loss kernel 32 times and GAE never (the counters
     set to 0 before each iteration, read after it); each timed beside one
@@ -2244,7 +2280,7 @@ def phase_overlap(dev, fused_trainer):
         t.run(1, log_every=1)  # the priming rollout and the first iteration
         torch.cuda.synchronize()
         prime_s = time.perf_counter() - t0
-        for i in range(3):
+        for i in range(2):
             for label, trainer in (("overlap", t), ("fused", fused_trainer)):
                 pending = t._pending
                 for k in kernels.values():
@@ -2264,7 +2300,7 @@ def phase_overlap(dev, fused_trainer):
     finally:
         ppo.update = update
     peak = torch.cuda.max_memory_allocated()
-    want = {"gae": 0, "ppo_loss_fwd": 32 * 3, "ppo_loss_bwd": 32 * 3}
+    want = {"gae": 0, "ppo_loss_fwd": 32 * 2, "ppo_loss_bwd": 32 * 2}
     if launches != want:
         fail(f"overlap path launch counts {launches} != {want}")
     mean = {k: sum(v) / len(v) for k, v in times.items()}
@@ -2992,7 +3028,7 @@ def gae_sweep():
 
 DP_RANKS = 2
 DP_TIMEOUT_S = 480  # a rank blocked in a collective with a failed one ends here
-DP_ITERS = {"ppo": 3, "lstm": 2, "overlap": 2, "ddpg": 6}
+DP_ITERS = {"ppo": 2, "lstm": 2, "overlap": 2, "ddpg": 6}
 
 
 def param_digest(*modules) -> str:
@@ -3245,7 +3281,303 @@ def dp_rank_nccl(mesh) -> dict:
     return out
 
 
-DP_RANK_PHASES = {"shared": dp_rank_shared, "nccl": dp_rank_nccl}
+# ---------------------------------------------------------------------------
+# Phases 35-39: the model and time mesh axes and ZeRO. Phases 35-37 run in
+# one pair of gloo ranks sharing the card, which make a data 2, a time 2 and
+# a model 2 mesh in turn over the same group; each checks the shapes a rank
+# holds. Phase 38 is the dry run of the reference's six layouts, phase 39
+# the three knobs through the CLI.
+# ---------------------------------------------------------------------------
+
+AXES_ITERS = 3  # 1 warm-up and 2 timed iterations of each flagship cell
+ZERO_CHUNK = 71_303  # ceil(142,605 / 2): a rank's chunk of the flagship's moments
+TP_PARAM_FLOATS = 71_821  # the six kernels halved (141,568 / 2) + 1,037 replicated
+# The tensor-parallel learner after one whole iteration against the one-device
+# trainer's: cuBLAS rounds the sharded products otherwise and the physics
+# amplifies it (7.5e-5 on an H100 80GB HBM3 at 700 W); a planted rollout
+# fault, checked to read above the limit, read 9.9e-3 there.
+TP_ITERATION_TOL = 1e-3
+DDPG_ZERO_ITERS = 6  # as phase 32: a rank's warm-up ends in the 5th
+
+
+class CollectiveClock:
+    """Counts and times every torch.distributed all_reduce and all_gather in
+    a `with` block, the card synchronised before and after each."""
+
+    KINDS = ("all_reduce", "all_gather")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.calls = dict.fromkeys(self.KINDS, 0)
+        self.seconds = dict.fromkeys(self.KINDS, 0.0)
+        self._orig = {k: getattr(dist, k) for k in self.KINDS}
+
+        def clocked(kind):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = self._orig[kind](*a, **k)
+                torch.cuda.synchronize()
+                self.seconds[kind] += time.perf_counter() - t0
+                self.calls[kind] += 1
+                return out
+
+            return run
+
+        for kind in self.KINDS:
+            setattr(dist, kind, clocked(kind))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for kind, fn in self._orig.items():
+            setattr(dist, kind, fn)
+
+    def numbers(self, per: float = 1.0) -> dict:
+        return {k: {"calls": self.calls[k] / per, "s": self.seconds[k] / per}
+                for k in self.KINDS}
+
+
+def add_counts(total: dict, kernels: dict) -> None:
+    for n, k in kernels.items():
+        total[n] = total.get(n, 0) + k.launches
+
+
+def axes_rank_zero(mesh) -> dict:
+    """Phase 35 in a rank: the flagship at data 2 with ZeRO, in turns with
+    the replicated run from the same seed; then DDPG's recipe likewise."""
+    from surreal_tpu_torch.algos.ddpg import DDPGConfig
+    from surreal_tpu_torch.algos.ppo import PPOConfig
+    from surreal_tpu_torch.train import DDPGTrainer, PPOTrainer
+
+    kernels = path_kernels()
+    out = {}
+    for algo in ("ppo", "ddpg"):
+        pair, iters = {}, AXES_ITERS if algo == "ppo" else DDPG_ZERO_ITERS
+        for name in ("replicated", "zero"):
+            if algo == "ppo":
+                pair[name] = PPOTrainer("cheetah-run", PPOConfig(
+                    **FLAGSHIP, zero_optimizer=name == "zero"), num_envs=256,
+                    hidden=(256, 256), seed=0, mesh=mesh)
+            else:
+                pair[name] = DDPGTrainer("cheetah-run", DDPGConfig(
+                    zero_optimizer=name == "zero"), num_envs=256, seed=0, mesh=mesh)
+        res = {n: {"s_per_iteration": [], "launches": {}, "all_gather_calls": 0,
+                   "all_gather_s": 0.0} for n in pair}
+        for _ in range(iters):
+            for name, t in pair.items():  # in turns
+                counts_zero(kernels)
+                with CollectiveClock() as clock:
+                    times, m = dp_timed_runs(t, 1)
+                r = res[name]
+                r["s_per_iteration"] += times
+                r["all_gather_calls"] += clock.calls["all_gather"]
+                r["all_gather_s"] += clock.seconds["all_gather"]
+                r["metrics"] = m
+                add_counts(r["launches"], kernels)
+        for name, t in pair.items():
+            s = t.state
+            nets = (s.net,) if algo == "ppo" else (s.actor, s.critic, s.target_actor,
+                                                   s.target_critic)
+            opts = (s.opt_state,) if algo == "ppo" else (s.actor_opt, s.critic_opt)
+            res[name]["digest"] = param_digest(*nets)
+            res[name]["moment_floats"] = [int(o.mu.numel()) if name == "zero"
+                                          else sum(int(v.numel()) for v in o.mu.values())
+                                          for o in opts]
+            res[name]["updates"] = s.update_step
+        out[algo] = res
+        del pair
+        torch.cuda.empty_cache()
+    return out
+
+
+def axes_rank_time(mesh) -> dict:
+    """Phase 36 in a rank: the flagship at data 1 x time 2; the GAE split
+    over the time axis against `gae` on one rollout's trajectory; a
+    time-sharded update on the card against the same on the CPU."""
+    from surreal_tpu_torch.algos import ppo
+    from surreal_tpu_torch.algos.ppo import PPOConfig
+    from surreal_tpu_torch.models.actor_critic import PPOActorCritic
+    from surreal_tpu_torch.ops import ppo_loss_kernel as plk, returns
+    from surreal_tpu_torch.parallel.tshard import replicated_reverse_scan
+    from surreal_tpu_torch.train import PPOTrainer
+
+    kernels = path_kernels()
+    cfg = PPOConfig(**FLAGSHIP)
+    t = PPOTrainer("cheetah-run", cfg, num_envs=256, hidden=(256, 256), seed=0, mesh=mesh)
+    counts_zero(kernels)
+    with CollectiveClock() as clock:
+        times, m = dp_timed_runs(t, AXES_ITERS)
+    launches = counts(kernels)
+    digest = param_digest(t.state.net)
+    traj = ppo.rollout(t.cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.ep_ret,
+                       t.generator)[0]
+    delta, coef = returns.gae_delta_coef(traj.reward, traj.value, traj.next_value,
+                                         traj.discount, traj.done, cfg.gamma, cfg.lam)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    split = replicated_reverse_scan(delta, coef, mesh)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    whole = returns.gae(traj.reward, traj.value, traj.next_value, traj.discount, traj.done,
+                        cfg.gamma, cfg.lam)[0]
+    gae_rel = float((split - whole).abs().max()) / max(1.0, float(whole.abs().max()))
+
+    # card vs CPU: one time-sharded update of a synthetic trajectory (the
+    # same on both time ranks, as a rollout's is)
+    rng = np.random.default_rng(300)
+    T, B, A = 16, 64, 6
+    ucfg = PPOConfig(horizon=T, epochs=2, num_minibatches=4, fused_loss=True, time_shards=2)
+    syn = synthetic_trajectory(T, B, A, 17, rng)
+    perms = torch.stack([torch.tensor(rng.permutation(T * B)) for _ in range(ucfg.epochs)])
+    res = {}
+    before = (plk.FWD.launches, plk.BWD.launches)
+    for d in ("cpu", mesh.device):
+        net = PPOActorCritic(17, A, hidden=(64, 64),
+                             generator=torch.Generator().manual_seed(0)).to(d)
+        st = ppo.init_state(ucfg, net, 17)
+        tr = ppo.Trajectory(**{k: x.to(d) for k, x in syn.items()})
+        st, metrics = ppo.update(ucfg, st, tr, None, perms.to(d), axis=mesh)
+        res[d] = ({k: p.detach().cpu() for k, p in net.named_parameters()},
+                  {k: float(x) for k, x in metrics.items()})
+    card = mesh.device
+    return {"time_shards": t.cfg.time_shards, "local_envs": t.local_envs,
+            "s_per_iteration": times, "launches": launches, "metrics": m, "digest": digest,
+            "collectives_per_iteration": clock.numbers(AXES_ITERS),
+            "gae_max_rel_err": gae_rel, "time_sharded_scan_s": scan_s,
+            "update_launches_on_the_card": [plk.FWD.launches - before[0],
+                                            plk.BWD.launches - before[1]],
+            "update_params_max_abs_err": max((res["cpu"][0][k] - res[card][0][k]).abs().max()
+                                             .item() for k in res["cpu"][0]),
+            "update_metrics_max_rel_err": max(abs(res["cpu"][1][k] - res[card][1][k])
+                                              / max(1.0, abs(res["cpu"][1][k]))
+                                              for k in res["cpu"][1])}
+
+
+def whole_digest(trainer) -> str:
+    """A hash of a tensor-parallel trainer's whole network (its shards
+    gathered over the model ranks: collective)."""
+    whole = trainer.sharding.gather(dict(trainer.state.net.named_parameters()))
+    return hashlib.sha256(b"".join(p.detach().cpu().numpy().tobytes()
+                                   for p in whole.values())).hexdigest()
+
+
+def axes_rank_model(mesh) -> dict:
+    """Phase 37 in a rank: the flagship at data 1 x model 2. Its first
+    iteration is run by parts, and rank 0 holds it against the one-device
+    trainer from the same seed: the rollouts (the first step's means and
+    values), the learners after each side's own iteration, the one-device
+    update of the tensor-parallel rollout's trajectory (same parameters,
+    Z-filter and permutations) against the tensor-parallel update, and a
+    one-device iteration with a planted rollout fault. Then 2 timed iterations, one more split into
+    rollout and update with the collectives counted and timed, and one
+    bfloat16 iteration."""
+    from surreal_tpu_torch.algos import ppo
+    from surreal_tpu_torch.algos.ppo import PPOConfig
+    from surreal_tpu_torch.parallel import mesh as pmesh, tp
+    from surreal_tpu_torch.train import PPOTrainer
+
+    kernels = path_kernels()
+    cfg = PPOConfig(**FLAGSHIP)
+
+    def trainer(**kw):
+        return PPOTrainer("cheetah-run", cfg, num_envs=256, hidden=(256, 256), seed=0, **kw)
+
+    t = trainer(mesh=mesh)
+    floats = sum(int(p.numel()) for p in t.state.net.parameters())
+    shapes = {n: list(p.shape) for n, p in t.state.net.named_parameters()}
+    counts_zero(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj, t.env_state, t.obs, t.ep_ret, _ = ppo.rollout(
+        cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.ep_ret, t.generator)
+    traj = tp.gather_envs(traj, mesh)
+    ppo.update(cfg, t.state, traj, t.generator)
+    t.global_iter += 1
+    torch.cuda.synchronize()
+    times = [time.perf_counter() - t0]
+    launches = counts(kernels)
+    gathered = {k: v.cpu() for k, v in t.sharding.gather(
+        dict(t.state.net.named_parameters())).items()}
+    vs_one = None
+    if mesh.primary:  # the one-device trainer from the same seed
+        one, twin, bad = (trainer(device=mesh.device) for _ in range(3))
+        traj_one = ppo.rollout(cfg, one.env, one._flatten, one.state, one.env_state, one.obs,
+                               one.ep_ret, one.generator)[0]
+        twin.generator.set_state(one.generator.get_state())  # the same permutations
+        ppo.update(cfg, one.state, traj_one, one.generator)
+        ppo.update(cfg, twin.state, traj, twin.generator)
+        # a planted fault confined to the rollout: the action noise of the
+        # wrong rows (a `rows=` slice one env off), the rest as the one device's
+        B = bad.obs.shape[0]
+        traj_bad = ppo.rollout(cfg, bad.env, bad._flatten, bad.state, bad.env_state, bad.obs,
+                               bad.ep_ret, bad.generator, rows=(1, B + 1, B + 1))[0]
+        ppo.update(cfg, bad.state, traj_bad, bad.generator)
+
+        def err(net):
+            return max((gathered[k] - p.detach().cpu()).abs().max().item()
+                       for k, p in net.named_parameters())
+
+        vs_one = {"first_step_mean_max_abs_err": (traj_one.mean[0] - traj.mean[0]).abs().max()
+                  .item(),
+                  "first_step_value_max_abs_err": (traj_one.value[0] - traj.value[0]).abs()
+                  .max().item(),
+                  "rollout_obs_max_abs_err": (traj_one.obs - traj.obs).abs().max().item(),
+                  "rollout_mean_max_abs_err": (traj_one.mean - traj.mean).abs().max().item(),
+                  "iteration_max_abs_err": err(one.state.net),
+                  "update_max_abs_err": err(twin.state.net),
+                  "planted_fault_iteration_max_abs_err": err(bad.state.net)}
+        del one, twin, bad
+    pmesh.barrier(mesh)
+    counts_zero(kernels)
+    more, m = dp_timed_runs(t, AXES_ITERS - 1)
+    add_counts(launches, kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with CollectiveClock() as roll_clock:
+        traj, t.env_state, t.obs, t.ep_ret, _ = ppo.rollout(
+            cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.ep_ret, t.generator)
+        traj = tp.gather_envs(traj, mesh)
+    t1 = time.perf_counter()
+    with CollectiveClock() as update_clock:
+        ppo.update(cfg, t.state, traj, t.generator)
+    t2 = time.perf_counter()
+    digest = whole_digest(t)
+    del t
+    torch.cuda.empty_cache()
+    tb = trainer(mesh=mesh, compute_dtype="bfloat16")
+    counts_zero(kernels)
+    bf16_times, bf16_m = dp_timed_runs(tb, 1)
+    return {"param_floats": floats, "shapes": shapes, "s_per_iteration": times + more,
+            "launches": launches, "metrics": m, "vs_one_device": vs_one,
+            "digest": digest, "rollout_s": t1 - t0, "update_s": t2 - t1,
+            "collectives_per_rollout_step": roll_clock.numbers(cfg.horizon),
+            "collectives_per_minibatch_step": update_clock.numbers(
+                cfg.epochs * cfg.num_minibatches),
+            "bf16_s": bf16_times, "bf16_metrics": bf16_m, "bf16_launches": counts(kernels),
+            "bf16_digest": whole_digest(tb)}
+
+
+def dp_rank_axes(mesh) -> dict:
+    """Phases 35-37: a data 2, a time 2 and a model 2 mesh in turn, made by
+    both ranks in the same order over the same group."""
+    from surreal_tpu_torch.parallel import mesh as pmesh
+
+    out = {}
+    for name, fn, shape in (("zero", axes_rank_zero, (2, 1, 1)),
+                            ("time", axes_rank_time, (1, 1, 2)),
+                            ("model", axes_rank_model, (1, 2, 1))):
+        t0 = time.perf_counter()
+        out[name] = fn(mesh if shape == (2, 1, 1)
+                       else pmesh.make_mesh(*shape, device=mesh.device.type))
+        out[name]["phase_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return out
+
+
+DP_RANK_PHASES = {"shared": dp_rank_shared, "nccl": dp_rank_nccl, "axes": dp_rank_axes}
 
 
 def dp_rank(local: int, folder: str, world: int, phases: str) -> None:
@@ -3426,77 +3758,350 @@ def phase_dp_nccl() -> dict:
     return r["mesh"]["launches"]
 
 
-def phase_cli_dp2() -> dict:
+CLI_DEVICE = "cuda"  # where the CLI phases' commands run
+
+
+def cli_train(root: str, name: str, flags: list, iters: int) -> tuple:
+    """`train ppo` through the port's CLI as a subprocess, at the
+    cartpole-balance recipe's width with the fused loss, `iters`
+    iterations with a checkpoint each and an evaluation at the end:
+    (name, iters, seconds, the CompletedProcess)."""
+    argv = [sys.executable, "-m", "surreal_tpu_torch.cli.main", "train", "ppo",
+            *CARTPOLE_FLAGS, *flags, "--session.total_env_steps", str(iters * CARTPOLE_ITER),
+            "--session.checkpoint_every_steps", str(CARTPOLE_ITER),
+            "--session.eval_every_steps", str(iters * CARTPOLE_ITER),
+            "--session.results_dir", root, "--session.experiment_name", name,
+            "--device", CLI_DEVICE]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    done = subprocess.run(argv, env=env, capture_output=True, text=True, timeout=900)
+    return name, iters, time.perf_counter() - t0, done
+
+
+def cli_chains(root: str, chains: dict) -> dict:
+    """Runs each chain of CLI runs (a list of (name, flags, iterations)) in
+    order, the chains at once; {chain: its runs' results} (`check_runs`
+    checks them)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(chain):
+        return [cli_train(root, *r) for r in chain]
+
+    with ThreadPoolExecutor(len(chains)) as ex:
+        return dict(zip(chains, ex.map(run, chains.values())))
+
+
+def check_runs(chains: dict) -> None:
+    """Fails if a CLI run of `cli_chains` failed."""
+    for runs in chains.values():
+        for name, iters, _, done in runs:
+            if done.returncode != 0:
+                fail(f"the CLI run {name} ({iters} iterations) failed:\n{done.stderr[-3000:]}")
+
+
+def rank_evals(text: str) -> dict:
+    """{rank: [eval lines]} from the ranks' log lines."""
+    got = {}
+    for rank, line in re.findall(r"cli\.rank(\d+)\] (eval @ .*)", text):
+        got.setdefault(rank, []).append(line)
+    return got
+
+
+def cli_checkpoint(root: str, name: str) -> tuple[dict, dict]:
+    """The last checkpoint of run `name` (2 iterations): its .pt files and
+    its mesh.json."""
+    folder = os.path.join(root, name, "checkpoints", "latest", str(2 * CARTPOLE_ITER))
+    files = {f: torch.load(os.path.join(folder, f), weights_only=True, map_location="cpu")
+             for f in sorted(os.listdir(folder)) if f.endswith(".pt")}
+    with open(os.path.join(folder, "mesh.json")) as f:
+        return files, json.load(f)
+
+
+# Phase 34's chains: 2 iterations straight; 1, then resumed to 2.
+DP2_CHAINS = {"dp2_straight": [("straight", ["--session.mesh.data", "2"], 2)],
+              "dp2_resumed": [("resumed", ["--session.mesh.data", "2"], 1),
+                              ("resumed", ["--session.mesh.data", "2"], 2)]}
+
+
+def phase_cli_dp2(root: str, chains: dict) -> dict:
     """Phase 34: `train ppo --session.mesh.data 2` through the port's CLI,
     as a user runs it (the command spawns its 2 ranks), at the
     cartpole-balance recipe's width with the fused loss: 2 iterations with
     a checkpoint each; the same run stopped after 1 and resumed; its last
     checkpoint against the uninterrupted run's, bit for bit; config.json
-    written once; the ranks' evaluation lines equal; then `eval`."""
-    root = tempfile.mkdtemp(prefix="chip_smoke_cli_dp2_")
+    written once; the ranks' evaluation lines equal; then `eval`. The runs
+    are DP2_CHAINS', done (`cli_chains`) at once with phase 39's."""
+    out = {"phase": "cli_ppo_cartpole_dp2", "run_at_once_with_phase_39": True}
+    (_, _, straight_s, straight), = chains["dp2_straight"]
+    (_, _, first_s, first), (_, _, resumed_s, resumed) = chains["dp2_resumed"]
+    writes = len(re.findall(r"wrote .*config\.json", straight.stderr))
+    ev = rank_evals(straight.stderr)
+    unequal = unequal_leaves(cli_checkpoint(root, "straight")[0],
+                             cli_checkpoint(root, "resumed")[0])
+    resumed_lines = re.findall(r"rank\d\] resumed from checkpoint @ (\d+)", resumed.stderr)
     env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-    out = {"phase": "cli_ppo_cartpole_dp2"}
+    ran = subprocess.run([sys.executable, "-m", "surreal_tpu_torch.cli.main", "eval",
+                          "--experiment", os.path.join(root, "straight"), "--episodes", "16",
+                          "--device", CLI_DEVICE], env=env, capture_output=True, text=True,
+                         timeout=600)
+    if ran.returncode != 0:
+        fail(f"`eval` failed:\n{ran.stderr[-3000:]}")
+    result = json.loads(ran.stdout.strip().splitlines()[-1])
+    out.update(straight_2_iterations_s=straight_s, stopped_and_resumed_s=first_s + resumed_s,
+               config_json_writes=writes, evals_by_rank=ev,
+               resumed_from=resumed_lines, unequal_after_resume=unequal, eval=result,
+               backend_line=[ln for ln in straight.stdout.splitlines() if "ranks over" in ln],
+               rank_lines=[ln for ln in straight.stderr.splitlines() if "LOCAL_RANK" in ln],
+               first_run_evals=rank_evals(first.stderr))
+    print(json.dumps(out))
+    if writes != 1:
+        fail(f"config.json was written {writes} times")
+    if sorted(ev) != ["0", "1"] or ev["0"] != ev["1"]:
+        fail(f"the ranks' evaluations differ: {ev}")
+    if resumed_lines != [str(CARTPOLE_ITER)] * 2:
+        fail(f"the ranks did not both resume at iteration 1: {resumed_lines}")
+    if unequal:
+        fail(f"the resumed run's checkpoint differs from the uninterrupted one's: {unequal}")
+    if f"{result['return_mean']:.1f}" not in ev["0"][-1]:
+        fail(f"`eval` of the checkpoint ({result}) is not the ranks' evaluation {ev['0']}")
+    return out
 
-    def cli(*args) -> subprocess.CompletedProcess:
-        argv = [sys.executable, "-m", "surreal_tpu_torch.cli.main", *args]
-        done = subprocess.run(argv, env=env, capture_output=True, text=True, timeout=600)
-        if done.returncode != 0:
-            fail(f"the CLI failed: {argv}\n{done.stderr[-3000:]}")
-        return done
 
-    def train(name, iters):
-        return cli("train", "ppo", *CARTPOLE_FLAGS, "--session.mesh.data", "2",
-                   "--session.total_env_steps", str(iters * CARTPOLE_ITER),
-                   "--session.checkpoint_every_steps", str(CARTPOLE_ITER),
-                   "--session.eval_every_steps", str(iters * CARTPOLE_ITER),
-                   "--session.results_dir", root, "--session.experiment_name", name,
-                   "--device", "cuda")
+def phase_axes() -> dict:
+    """Phases 35-37: ZeRO, the time axis and the model axis, 2 gloo ranks
+    sharing the card. Returns each path's launches, per rank."""
+    t0 = time.perf_counter()
+    ranks = run_ranks("axes", DP_RANKS)
+    wall = time.perf_counter() - t0
+    n = AXES_ITERS
+    want = {"gae": 0, "ppo_loss_fwd": 32 * n, "ppo_loss_bwd": 32 * n}
+    none = {"gae": 0, "ppo_loss_fwd": 0, "ppo_loss_bwd": 0}
+    by_path = {}
 
-    def evals(text):
-        got = {}
-        for rank, line in re.findall(r"cli\.rank(\d+)\] (eval @ .*)", text):
-            got.setdefault(rank, []).append(line)
-        return got
+    def same(part, *keys):
+        vals = [functools.reduce(lambda x, k: x[k], keys, r[part]) for r in ranks]
+        if len(set(map(str, vals))) != 1:
+            fail(f"{part}: {keys} differs across ranks: {vals}")
 
-    def checkpoint(name):
-        folder = os.path.join(root, name, "checkpoints", "latest", str(2 * CARTPOLE_ITER))
-        return {f: torch.load(os.path.join(folder, f), weights_only=True, map_location="cpu")
-                for f in sorted(os.listdir(folder)) if f.endswith(".pt")}
+    # 35: ZeRO
+    z = [r["zero"] for r in ranks]
+    for algo in ("ppo", "ddpg"):
+        same("zero", algo, "zero", "digest")
+    for r, x in enumerate(z):
+        p, d = x["ppo"], x["ddpg"]
+        for algo, pair in (("ppo", p), ("ddpg", d)):
+            if pair["zero"]["digest"] != pair["replicated"]["digest"]:
+                fail(f"{algo}_zero_dp2: rank {r}'s ZeRO learner differs from the replicated one")
+            check_finite(f"{algo}_zero_dp2", pair["zero"]["metrics"])
+        if p["zero"]["moment_floats"] != [ZERO_CHUNK] or p["replicated"]["moment_floats"] != [
+                142_605]:
+            fail(f"ppo_zero_dp2: rank {r} holds {p['zero']['moment_floats']} moment floats, "
+                 f"not [{ZERO_CHUNK}]")
+        if p["zero"]["launches"] != want or p["replicated"]["launches"] != want:
+            fail(f"ppo_zero_dp2: rank {r} launched {p['zero']['launches']}, not {want}")
+        if p["zero"]["all_gather_calls"] != 32 * n:
+            fail(f"ppo_zero_dp2: {p['zero']['all_gather_calls']} all_gathers, not {32 * n}")
+        halves = [-(-f // 2) for f in d["replicated"]["moment_floats"]]
+        if (d["zero"]["moment_floats"] != halves or d["zero"]["updates"] != 32
+                or d["zero"]["launches"] != none):
+            fail(f"ddpg_zero_dp2: rank {r}: {d['zero']}")
+        by_path[f"ppo_zero_dp2_cheetah_rank{r}"] = p["zero"]["launches"]
+        by_path[f"ddpg_zero_dp2_cheetah_rank{r}"] = d["zero"]["launches"]
+    print(json.dumps({
+        "phase": "ppo_zero_dp2_cheetah", "ranks": DP_RANKS, "backend": "gloo",
+        "moment_floats_a_rank": ZERO_CHUNK, "moment_bytes_a_rank": 2 * 4 * ZERO_CHUNK,
+        "moment_bytes_replicated": 2 * 4 * 142_605, "params_bitwise_equal_to_replicated": True,
+        "in_turns_s_per_iteration_by_rank": [
+            {k: x["ppo"][k]["s_per_iteration"] for k in ("replicated", "zero")} for x in z],
+        "all_gather_s_per_update_by_rank": [x["ppo"]["zero"]["all_gather_s"] / n for x in z],
+        "all_gather_calls_per_update": z[0]["ppo"]["zero"]["all_gather_calls"] / n,
+        "launches_by_rank": [x["ppo"]["zero"]["launches"] for x in z],
+        "metrics_rank0": z[0]["ppo"]["zero"]["metrics"]}))
+    print(json.dumps({
+        "phase": "ddpg_zero_dp2_cheetah", "iterations": DDPG_ZERO_ITERS,
+        "moment_floats_a_rank": z[0]["ddpg"]["zero"]["moment_floats"],
+        "moment_floats_replicated": z[0]["ddpg"]["replicated"]["moment_floats"],
+        "params_bitwise_equal_to_replicated": True, "updates": z[0]["ddpg"]["zero"]["updates"],
+        "in_turns_s_per_iteration_by_rank": [
+            {k: x["ddpg"][k]["s_per_iteration"] for k in ("replicated", "zero")} for x in z],
+        "all_gather_s_by_rank": [x["ddpg"]["zero"]["all_gather_s"] for x in z]}))
 
-    try:
+    # 36: the time axis
+    tm = [r["time"] for r in ranks]
+    same("time", "digest")
+    for r, x in enumerate(tm):
+        if x["time_shards"] != 2 or x["local_envs"] != 256 or x["launches"] != want:
+            fail(f"ppo_time2_cheetah: rank {r}: time_shards {x['time_shards']}, "
+                 f"{x['local_envs']} envs, launches {x['launches']} (want {want})")
+        if not x["gae_max_rel_err"] <= 1e-5:
+            fail(f"ppo_time2_cheetah: the time-sharded GAE is {x['gae_max_rel_err']} from gae")
+        if x["update_launches_on_the_card"] != [8, 8] or not (
+                x["update_params_max_abs_err"] <= 1e-5
+                and x["update_metrics_max_rel_err"] <= 1e-4):
+            fail(f"ppo_time2_cheetah: rank {r}'s time-sharded update, card vs CPU: {x}")
+        check_finite("ppo_time2_cheetah", x["metrics"])
+        by_path[f"ppo_time2_cheetah_rank{r}"] = x["launches"]
+    print(json.dumps({"phase": "ppo_time2_cheetah", "ranks": DP_RANKS, "mesh": "1x1x2",
+                      "envs_per_rank": 256, "params_bitwise_equal": True,
+                      **{k: [x[k] for x in tm] for k in (
+                          "s_per_iteration", "gae_max_rel_err", "time_sharded_scan_s",
+                          "update_params_max_abs_err", "update_metrics_max_rel_err",
+                          "collectives_per_iteration", "launches")},
+                      "tol": 1e-5, "metrics_rank0": tm[0]["metrics"]}))
+
+    # 37: the model axis
+    md = [r["model"] for r in ranks]
+    same("model", "digest")
+    same("model", "bf16_digest")
+    for r, x in enumerate(md):
+        if x["param_floats"] != TP_PARAM_FLOATS or x["shapes"]["actor_torso.dense_0.weight"] \
+                != [128, 17] or x["shapes"]["mean_head.weight"] != [3, 256]:
+            fail(f"ppo_model2_cheetah: rank {r} holds {x['param_floats']} parameter floats "
+                 f"({x['shapes']}), not {TP_PARAM_FLOATS}")
+        if x["launches"] != want or x["bf16_launches"] != {k: v // n for k, v in want.items()}:
+            fail(f"ppo_model2_cheetah: rank {r} launched {x['launches']} "
+                 f"(bf16 {x['bf16_launches']}), not {want}")
+        check_finite("ppo_model2_cheetah", x["metrics"])
+        check_finite("ppo_model2_bf16_cheetah", x["bf16_metrics"])
+        by_path[f"ppo_model2_cheetah_rank{r}"] = x["launches"]
+        by_path[f"ppo_model2_bf16_cheetah_rank{r}"] = x["bf16_launches"]
+    vs_one = md[0]["vs_one_device"]
+    for k in ("first_step_mean_max_abs_err", "first_step_value_max_abs_err",
+              "update_max_abs_err"):
+        if not vs_one[k] <= 1e-5:
+            fail(f"ppo_model2_cheetah: {k} {vs_one[k]} against the one-device trainer")
+    if not vs_one["iteration_max_abs_err"] <= TP_ITERATION_TOL:
+        fail(f"ppo_model2_cheetah: the gathered learner is {vs_one['iteration_max_abs_err']} "
+             f"from the one-device trainer's after one iteration (limit {TP_ITERATION_TOL})")
+    if not vs_one["planted_fault_iteration_max_abs_err"] > TP_ITERATION_TOL:
+        fail(f"ppo_model2_cheetah: a planted rollout fault reads "
+             f"{vs_one['planted_fault_iteration_max_abs_err']}, inside the limit "
+             f"{TP_ITERATION_TOL}: the gate cannot see it")
+    print(json.dumps({"phase": "ppo_model2_cheetah", "ranks": DP_RANKS, "mesh": "1x2x1",
+                      "param_floats_a_rank": TP_PARAM_FLOATS, "envs_per_rank": 256,
+                      "vs_one_device_rank0": vs_one,
+                      "tol": 1e-5, "iteration_tol": TP_ITERATION_TOL,
+                      "params_bitwise_equal": True,
+                      **{k: [x[k] for x in md] for k in (
+                          "s_per_iteration", "rollout_s", "update_s",
+                          "collectives_per_rollout_step", "collectives_per_minibatch_step",
+                          "launches", "bf16_s")},
+                      "metrics_rank0": md[0]["metrics"],
+                      "bf16_metrics_rank0": md[0]["bf16_metrics"]}))
+    print(f"axes phases 35-37: {wall:.1f} s with the ranks' start; per rank "
+          f"{[{k: round(r[k]['phase_s'], 1) for k in ('zero', 'time', 'model')} for r in ranks]}")
+    return by_path
+
+
+DRYRUN_LABELS = ("dp", "dp + zero", "dp + lstm", "dp x sp(time)", "dp x tp(model)", "dp (ddpg)")
+
+
+def start_dryrun():
+    """Phase 38's command, started in a thread: `python -m
+    surreal_tpu_torch.dryrun 2 cuda`, the reference's six layouts over 2
+    ranks sharing the card. Returns its future: (seconds, CompletedProcess)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+
+    def run():
         t0 = time.perf_counter()
-        straight = train("straight", 2)
-        t1 = time.perf_counter()
-        first = train("resumed", 1)
-        resumed = train("resumed", 2)
-        t2 = time.perf_counter()
-        writes = len(re.findall(r"wrote .*config\.json", straight.stderr))
-        ev = evals(straight.stderr)
-        unequal = unequal_leaves(checkpoint("straight"), checkpoint("resumed"))
-        resumed_lines = re.findall(r"rank\d\] resumed from checkpoint @ (\d+)", resumed.stderr)
-        ran = cli("eval", "--experiment", os.path.join(root, "straight"), "--episodes", "16",
-                  "--device", "cuda")
-        result = json.loads(ran.stdout.strip().splitlines()[-1])
-        out.update(straight_2_iterations_s=t1 - t0, stopped_and_resumed_s=t2 - t1,
-                   config_json_writes=writes, evals_by_rank=ev,
-                   resumed_from=resumed_lines, unequal_after_resume=unequal, eval=result,
-                   backend_line=[ln for ln in straight.stdout.splitlines() if "ranks over" in ln],
-                   rank_lines=[ln for ln in straight.stderr.splitlines() if "LOCAL_RANK" in ln],
-                   first_run_evals=evals(first.stderr))
-        print(json.dumps(out))
-        if writes != 1:
-            fail(f"config.json was written {writes} times")
-        if sorted(ev) != ["0", "1"] or ev["0"] != ev["1"]:
-            fail(f"the ranks' evaluations differ: {ev}")
-        if resumed_lines != [str(CARTPOLE_ITER)] * 2:
-            fail(f"the ranks did not both resume at iteration 1: {resumed_lines}")
-        if unequal:
-            fail(f"the resumed run's checkpoint differs from the uninterrupted one's: {unequal}")
-        if f"{result['return_mean']:.1f}" not in ev["0"][-1]:
-            fail(f"`eval` of the checkpoint ({result}) is not the ranks' evaluation {ev['0']}")
+        done = subprocess.run([sys.executable, "-m", "surreal_tpu_torch.dryrun", "2",
+                               CLI_DEVICE], env=env, capture_output=True, text=True,
+                              timeout=600)
+        return time.perf_counter() - t0, done
+
+    ex = ThreadPoolExecutor(1)
+    future = ex.submit(run)
+    ex.shutdown(wait=False)
+    return future
+
+
+def phase_dryrun(started) -> None:
+    """Phase 38: the dry run's six layouts each printed OK."""
+    secs, done = started.result(timeout=600)
+    lines = [ln for ln in done.stdout.splitlines() if ln.startswith("dryrun_multichip(2)")]
+    print(json.dumps({"phase": "dryrun_multichip_2_cuda", "s": secs,
+                      "run_at_once_with_phases_34_39": True, "lines": lines}))
+    if done.returncode != 0 or [ln.split(" OK:")[0] for ln in lines] != [
+            f"dryrun_multichip(2) {k}" for k in DRYRUN_LABELS]:
+        fail(f"the dry run failed:\n{done.stdout[-2000:]}\n{done.stderr[-3000:]}")
+
+
+CLI_KNOBS = {"model2": ["--session.mesh.model", "2"], "time2": ["--session.mesh.time", "2"],
+             "zero_dp2": ["--session.mesh.data", "2", "--learner.zero_optimizer", "true"]}
+# Phase 39's chains: model 2 and time 2 for 2 iterations; ZeRO's run 1, then
+# resumed to 2, against phase 34's uninterrupted replicated data-2 run (ZeRO's
+# learner is the replicated one's bit for bit, phase 35).
+AXES_CHAINS = {"model2": [("model2", CLI_KNOBS["model2"], 2)],
+               "time2": [("time2", CLI_KNOBS["time2"], 2)],
+               "zero_dp2": [("zero_dp2", CLI_KNOBS["zero_dp2"], 1),
+                            ("zero_dp2", CLI_KNOBS["zero_dp2"], 2)]}
+
+
+def phase_cli_axes(root: str, chains: dict) -> dict:
+    """Phase 39: `train ppo` through the CLI at the cartpole-balance
+    recipe's width with the fused loss under each knob of CLI_KNOBS, 2
+    iterations, a checkpoint each; the ZeRO run stopped after 1 and resumed,
+    its last checkpoint against phase 34's uninterrupted replicated run's,
+    bit for bit. The runs are AXES_CHAINS', done at once with phase 34's."""
+    out = {"phase": "cli_ppo_cartpole_axes", "run_at_once_with_phase_34": True, "runs": {}}
+    runs = [r for k in AXES_CHAINS for r in chains[k]]
+    for name, iters, secs, done in runs:
+        got = rank_evals(done.stderr)
+        if sorted(got) != ["0", "1"] or got["0"] != got["1"]:
+            fail(f"{name}: the ranks' evaluations differ: {got}")
+        out["runs"][f"{name}_{iters}"] = {"s": secs, "eval": got["0"]}
+    resumed = re.findall(r"rank\d\] resumed from checkpoint @ (\d+)", runs[-1][3].stderr)
+    if resumed != [str(CARTPOLE_ITER)] * 2:
+        fail(f"the ZeRO run did not resume at iteration 1 on both ranks: {resumed}")
+    layouts = {name: cli_checkpoint(root, name)[1] for name in CLI_KNOBS}
+    want = {"model2": {"data": 1, "model": 2, "time": 1, "zero": False},
+            "time2": {"data": 1, "model": 1, "time": 2, "zero": False},
+            "zero_dp2": {"data": 2, "model": 1, "time": 1, "zero": True}}
+    if layouts != want:
+        fail(f"the checkpoints' layouts are {layouts}, not {want}")
+    unequal = unequal_leaves(cli_checkpoint(root, "straight")[0],
+                             cli_checkpoint(root, "zero_dp2")[0])
+    out.update(layouts=layouts, unequal_after_resume=unequal, zero_resumed_from=resumed)
+    print(json.dumps(out))
+    if unequal:
+        fail(f"the resumed ZeRO run's checkpoint differs from the uninterrupted replicated "
+             f"one's: {unequal}")
+    return out
+
+
+def start_cli_mesh(dp2: bool = True) -> dict:
+    """Starts phases 34 (with `dp2`; without, only its uninterrupted run,
+    which phase 39 holds the resumed ZeRO run against), 38 and 39: the dry
+    run and every chain of CLI runs at once in threads, each command's 2
+    ranks sharing the card. `finish_cli_mesh` waits and checks."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_mesh_")
+    chains = {**(DP2_CHAINS if dp2 else {"dp2_straight": DP2_CHAINS["dp2_straight"]}),
+              **AXES_CHAINS}
+    ex = ThreadPoolExecutor(1)
+    pending = ex.submit(cli_chains, root, chains)
+    ex.shutdown(wait=False)
+    return {"root": root, "dp2": dp2, "t0": time.perf_counter(), "dryrun": start_dryrun(),
+            "chains": pending}
+
+
+def finish_cli_mesh(started: dict) -> None:
+    """Phases 34, 38 and 39's checks, in order, once their runs are done."""
+    root = started["root"]
+    try:
+        chains = started["chains"].result()
+        check_runs(chains)
+        if started["dp2"]:
+            phase_cli_dp2(root, chains)
+        phase_dryrun(started["dryrun"])
+        phase_cli_axes(root, chains)
+        print(f"CLI and dry-run phases {'34, ' if started['dp2'] else ''}38, 39: "
+              f"{time.perf_counter() - started['t0']:.1f} s from their start")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return out
 
 
 def main():
@@ -3519,7 +4124,14 @@ def main():
         phase_build()
         phase_dp_shared()
         phase_dp_nccl()
-        phase_cli_dp2()
+        phase_axes()
+        finish_cli_mesh(start_cli_mesh())
+        return
+    if sys.argv[1:2] == ["--axes"]:
+        phase_card()
+        phase_build()
+        phase_axes()
+        finish_cli_mesh(start_cli_mesh(dp2=False))
         return
     if sys.argv[1:2] == ["--learn"]:
         rest = sys.argv[2:]
@@ -3532,38 +4144,51 @@ def main():
 
     t_start = time.perf_counter()
     dev = resolve("cuda")
+
+    def timed_phase(label, fn, *args):
+        """fn(*args), its wall time printed (where the run's time goes)."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"chip_smoke: {label} took {time.perf_counter() - t0:.1f} s")
+        return out
+
     smi = phase_card()
     phase_build()
-    kernels = phase_kernels(dev)
-    phase_small_parity(dev)
-    trainer, launches = phase_slice(dev)
-    phase_ddpg_parity(dev)
-    ddpg_trainer, ddpg_launches, ddpg_times = phase_ddpg(dev)
-    lstm_trainer, lstm_launches, lstm_times = phase_lstm(dev)
-    phase_serving(dev, trainer)
-    phase_envs(dev)
-    finger_trainer, finger_launches, finger_times = phase_finger(dev)
-    cli_launches, cli_bf16_launches = phase_cli(dev, ddpg_trainer)
-    render_cases = phase_render(dev)
-    pixel_trainer, pixel_launches, pixel_times = phase_pixel_ppo(dev)
-    pixel_ddpg_launches = phase_pixel_ddpg(dev)[1]  # its 2.1 GB ring is freed here
-    cli_pixel_launches = phase_cli_pixel(dev)
-    bf16_launches = phase_bf16(dev)[1]
-    phase_bf16_parity(dev)
-    overlap_launches = phase_overlap(dev, trainer)
+    kernels = timed_phase("3 kernels", phase_kernels, dev)
+    timed_phase("4 small parity", phase_small_parity, dev)
+    trainer, launches = timed_phase("5 slice", phase_slice, dev)
+    timed_phase("6 ddpg parity", phase_ddpg_parity, dev)
+    ddpg_trainer, ddpg_launches, ddpg_times = timed_phase("7 ddpg", phase_ddpg, dev)
+    lstm_trainer, lstm_launches, lstm_times = timed_phase("8 lstm", phase_lstm, dev)
+    timed_phase("9 serving", phase_serving, dev, trainer)
+    timed_phase("10 envs", phase_envs, dev)
+    finger_trainer, finger_launches, finger_times = timed_phase("11 finger", phase_finger, dev)
+    cli_launches, cli_bf16_launches = timed_phase("12 cli", phase_cli, dev, ddpg_trainer)
+    render_cases = timed_phase("13 render", phase_render, dev)
+    pixel_trainer, pixel_launches, pixel_times = timed_phase("14 pixel ppo", phase_pixel_ppo,
+                                                             dev)
+    # its 2.1 GB ring is freed here
+    pixel_ddpg_launches = timed_phase("15 pixel ddpg", phase_pixel_ddpg, dev)[1]
+    cli_pixel_launches = timed_phase("16 pixel cli", phase_cli_pixel, dev)
+    bf16_launches = timed_phase("17 bf16", phase_bf16, dev)[1]
+    timed_phase("18 bf16 parity", phase_bf16_parity, dev)
+    overlap_launches = timed_phase("19 overlap", phase_overlap, dev, trainer)
     found = phase_host_bridges()
     os.environ.setdefault("MUJOCO_GL", "egl")  # dm_control picks its GL platform when imported
-    instance_launches = phase_ppo_instance(dev)
+    instance_launches = timed_phase("21 instance", phase_ppo_instance, dev)
     gym_launches = phase_ppo_gym(dev, found)
     phase_oracle(dev, found)
     phase_video_mujoco(dev, found, trainer)
-    dp_launches = phase_dp_shared()
-    nccl_launches = phase_dp_nccl()
-    phase_cli_dp2()
-    breakdown(trainer)
-    new_cells_profile(ddpg_trainer, ddpg_times, lstm_trainer, lstm_times)
-    finger_profile(finger_trainer, finger_times)
-    pixel_profile(pixel_trainer, pixel_times, render_cases)
+    dp_launches = timed_phase("28-32 data axis", phase_dp_shared)
+    nccl_launches = timed_phase("33 nccl", phase_dp_nccl)
+    axes_launches = timed_phase("35-37 zero, time, model", phase_axes)
+    timed_phase("25 profile", breakdown, trainer)
+    timed_phase("26 profiles", new_cells_profile, ddpg_trainer, ddpg_times, lstm_trainer,
+                lstm_times)
+    timed_phase("26 finger profile", finger_profile, finger_trainer, finger_times)
+    timed_phase("27 pixel profile", pixel_profile, pixel_trainer, pixel_times, render_cases)
+    # phases 34, 38 and 39 (subprocesses sharing the card) after every profile
+    timed_phase("34, 38, 39 cli and dry run", finish_cli_mesh, start_cli_mesh())
     for name, k in kernels.items():
         # every number is a reading: each path was driven with the counts at
         # 0 just before it and read just after its last update
@@ -3583,7 +4208,11 @@ def main():
                    "ppo_dp1_nccl_cheetah": nccl_launches[name],
                    # None: the CLI's ranks are its own processes, whose counts
                    # this script does not read (phase 34 checks the run itself)
-                   "cli_ppo_cartpole_dp2": None}
+                   "cli_ppo_cartpole_dp2": None,
+                   # the model and time axes and ZeRO, per rank (35-37); the dry
+                   # run's and the CLI's ranks are processes of their own (38, 39)
+                   **{path: n[name] for path, n in axes_launches.items()},
+                   "dryrun_multichip_2": None, "cli_ppo_cartpole_axes": None}
         k["launches"] = sum(v for v in by_path.values() if v is not None)
         k["launches_by_path"] = by_path
         for extra in ("tol", "bytes", "call_ms", "plain_call_ms"):

@@ -34,9 +34,9 @@ import torch
 
 from surreal_tpu_torch.algos.ppo import (
     AdamState,
+    adam_direction,
     adam_init,
     clip_by_global_norm,
-    scale_by_adam,
 )
 from surreal_tpu_torch.data.replay import (
     ReplayState,
@@ -59,14 +59,16 @@ from surreal_tpu_torch.parallel.param_sync import (
     param_sync_init,
     param_sync_refresh,
 )
+from surreal_tpu_torch.parallel.zero import ZeroAdamState, uses_zero, zero_adam_init
 
 Tensor = torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
 class DDPGConfig:
-    """The reference's DDPGConfig: same fields, same defaults. The sharded
-    optimizer must keep its off values (A15b)."""
+    """The reference's DDPGConfig: same fields, same defaults. The trainer
+    sets `zero_shards` from the mesh's data axis; `zero_optimizer` with one
+    shard is plain Adam, as in the reference."""
 
     rollout_steps: int = 16  # env steps per train iteration
     updates_per_iteration: int = 16
@@ -101,10 +103,6 @@ class DDPGConfig:
     zero_shards: int = 1
 
     def __post_init__(self):
-        if self.zero_optimizer or self.zero_shards != 1:
-            raise NotImplementedError(
-                "zero_optimizer is a multi-device feature that is not ported yet "
-                "(ROADMAP.md, Queue A: A15b)")
         if self.noise_type not in ("ou", "gaussian"):
             raise ValueError(f"unknown noise_type {self.noise_type!r}")
 
@@ -115,8 +113,8 @@ class DDPGTrainState:
     critic: DDPGCritic
     target_actor: DDPGActor
     target_critic: DDPGCritic
-    actor_opt: AdamState
-    critic_opt: AdamState
+    actor_opt: AdamState | ZeroAdamState
+    critic_opt: AdamState | ZeroAdamState
     zfilter: ZFilterState
     update_step: int
     # Snapshot of the actor when cfg.publish_every > 1, else None.
@@ -131,12 +129,16 @@ def init_state(cfg: DDPGConfig, actor: DDPGActor, critic: DDPGCritic,
         critic=critic,
         target_actor=copy.deepcopy(actor).requires_grad_(False),
         target_critic=copy.deepcopy(critic).requires_grad_(False),
-        actor_opt=adam_init(actor),
-        critic_opt=adam_init(critic),
+        actor_opt=_opt_init(cfg, actor),
+        critic_opt=_opt_init(cfg, critic),
         zfilter=zfilter_init(obs_dim, device),
         update_step=0,
         psync=param_sync_init(actor) if cfg.publish_every > 1 else None,
     )
+
+
+def _opt_init(cfg: DDPGConfig, module: torch.nn.Module) -> AdamState | ZeroAdamState:
+    return zero_adam_init(module, cfg.zero_shards) if uses_zero(cfg) else adam_init(module)
 
 
 def acting_params(cfg: DDPGConfig, state: DDPGTrainState) -> DDPGActor:
@@ -252,14 +254,15 @@ def rollout(cfg: DDPGConfig, env: Environment, flatten_obs: Callable, state: DDP
 # ---------------------------------------------------------------------------
 
 
-def _adam_step(module: torch.nn.Module, loss: Tensor, opt: AdamState, lr: float,
-               max_grad_norm: float, axis=None) -> None:
+def _adam_step(module: torch.nn.Module, loss: Tensor, opt: AdamState | ZeroAdamState,
+               lr: float, max_grad_norm: float, axis=None) -> None:
     """optax.chain(clip_by_global_norm, scale_by_adam(), scale(-lr)) on the
     module's parameters, in place: optax's default eps of 1e-8, not PPO's
     1e-5. The gradient is taken with respect to this module's parameters
     only, so a loss that runs through another network leaves it alone; with
     `axis`, it is averaged across the ranks (one flat all-reduce) before
-    the clip, as the reference's pmean of the gradient tree."""
+    the clip, as the reference's pmean of the gradient tree. A ZeroAdamState
+    splits the moments over `axis`'s data ranks (`parallel.zero`)."""
     named = dict(module.named_parameters())
     # a detached stem is not in the loss's graph: its gradient is zero, as
     # the reference's stop_gradient makes it
@@ -270,7 +273,7 @@ def _adam_step(module: torch.nn.Module, loss: Tensor, opt: AdamState, lr: float,
     grads = {n: grads[n] if n in grads else torch.zeros_like(p) for n, p in named.items()}
     grads = dict(zip(grads, pmean_flat(list(grads.values()), axis)))
     with torch.no_grad():
-        updates = scale_by_adam(clip_by_global_norm(grads, max_grad_norm), opt, eps=1e-8)
+        updates = adam_direction(clip_by_global_norm(grads, max_grad_norm), opt, axis, 1e-8)
         for n, p in named.items():
             p.add_(-lr * updates[n])
 

@@ -10,11 +10,15 @@ Randomness comes from explicit `torch.Generator`s. The reference's threefry
 streams cannot be reproduced, so `rollout` accepts pre-drawn action noise
 and `update` pre-drawn permutations; tests feed the reference's draws.
 
-`update` and the steps take `axis`, a data mesh (`parallel.mesh`), where
-the reference takes `axis_name`: they then reduce across the ranks at the
+`update` and the steps take `axis`, a mesh (`parallel.mesh`), where the
+reference takes `axis_name`: they then reduce across the data ranks at the
 reference's points, in its order (the advantages' mean and variance, each
 minibatch's gradients, the KL that drives the adaptation, the Z-filter).
-With `axis=None` they compute what the one-device path computes.
+With `axis=None` they compute what the one-device path computes. Under
+`zero_optimizer` with `zero_shards` > 1 the Adam moments are split over the
+data ranks (`parallel.zero`); with `time_shards` > 1 the GAE scan is split
+over the mesh's time axis (`parallel.tshard`); a network sharded over the
+model axis (`parallel.tp`) completes its gradients and their norm over it.
 """
 
 from __future__ import annotations
@@ -34,12 +38,20 @@ from surreal_tpu_torch.models.z_filter import (
     zfilter_normalize,
     zfilter_update,
 )
-from surreal_tpu_torch.ops.returns import gae
+from surreal_tpu_torch.ops.returns import gae, gae_delta_coef
+from surreal_tpu_torch.parallel import tp
 from surreal_tpu_torch.parallel.mesh import pmean, pmean_flat
 from surreal_tpu_torch.parallel.param_sync import (
     ParamSyncState,
     param_sync_init,
     param_sync_refresh,
+)
+from surreal_tpu_torch.parallel.tshard import replicated_reverse_scan
+from surreal_tpu_torch.parallel.zero import (
+    ZeroAdamState,
+    scale_by_zero_adam,
+    uses_zero,
+    zero_adam_init,
 )
 from surreal_tpu_torch.utils import guards
 
@@ -48,9 +60,9 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class PPOConfig:
-    """The reference's PPOConfig: same fields, same defaults. The port has
-    the data axis only, so `zero_shards` and `time_shards` must keep their
-    one-device values (A15b)."""
+    """The reference's PPOConfig: same fields, same defaults. The trainers
+    set `zero_shards` and `time_shards` from the mesh, as the reference's
+    do."""
 
     horizon: int = 128
     gamma: float = 0.99
@@ -80,11 +92,6 @@ class PPOConfig:
     time_shards: int = 1
 
     def __post_init__(self):
-        if self.time_shards != 1 or self.zero_shards != 1:
-            raise NotImplementedError(
-                "time_shards and zero_shards > 1 are multi-device features that "
-                "are not ported yet (ROADMAP.md, Queue A: A15b)"
-            )
         if self.objective not in ("clip", "adaptive_kl"):
             raise ValueError(f"unknown objective {self.objective!r}")
 
@@ -101,7 +108,7 @@ class AdamState:
 @dataclasses.dataclass
 class PPOTrainState:
     net: PPOActorCritic  # holds the parameters
-    opt_state: AdamState
+    opt_state: AdamState | ZeroAdamState
     zfilter: ZFilterState
     kl_beta: Tensor  # () f32, adaptive-KL penalty coefficient
     lr_scale: Tensor  # () f32, KL-adaptive LR multiplier
@@ -137,7 +144,7 @@ def init_state(cfg: PPOConfig, net: PPOActorCritic, obs_dim: int) -> PPOTrainSta
     device = next(net.parameters()).device
     return PPOTrainState(
         net=net,
-        opt_state=adam_init(net),
+        opt_state=zero_adam_init(net, cfg.zero_shards) if uses_zero(cfg) else adam_init(net),
         zfilter=zfilter_init(obs_dim, device),
         kl_beta=torch.tensor(cfg.kl_beta_init, dtype=torch.float32, device=device),
         lr_scale=torch.tensor(1.0, dtype=torch.float32, device=device),
@@ -163,8 +170,12 @@ def global_norm(tensors) -> Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
 
 
-def clip_by_global_norm(grads: dict[str, Tensor], max_norm: float) -> dict[str, Tensor]:
-    g_norm = global_norm(grads.values())
+def clip_by_global_norm(grads: dict[str, Tensor], max_norm: float,
+                        g_norm: Tensor | None = None) -> dict[str, Tensor]:
+    """`g_norm`, if given, is the gradients' global norm (a sharded
+    network's counts each element once over the model axis)."""
+    if g_norm is None:
+        g_norm = global_norm(grads.values())
     trigger = g_norm < max_norm
     return {n: torch.where(trigger, g, (g / g_norm) * max_norm) for n, g in grads.items()}
 
@@ -197,10 +208,14 @@ def _norm(cfg: PPOConfig, state: PPOTrainState, obs: Tensor) -> Tensor:
 @torch.no_grad()
 def rollout(cfg: PPOConfig, env: Environment, flatten_obs: Callable,
             state: PPOTrainState, env_state: EnvState, obs: Tensor, ep_ret: Tensor,
-            generator: torch.Generator, noise: Tensor | None = None):
+            generator: torch.Generator, noise: Tensor | None = None,
+            rows: tuple[int, int, int] | None = None):
     """Collects T steps from B lockstep envs. `noise` (T, B, A), if given,
-    replaces the standard-normal action noise drawn from `generator`.
-    Returns (traj, env_state, obs, ep_ret, episode stats)."""
+    replaces the standard-normal action noise drawn from `generator`;
+    `rows` (lo, hi, total) draws it for a whole batch of `total` envs and
+    keeps rows lo:hi, these envs' (the tensor-parallel step's slice of a
+    one-device batch). Returns (traj, env_state, obs, ep_ret, episode
+    stats)."""
     net = acting_params(cfg, state)
     done_sum = torch.zeros_like(ep_ret)
     done_ret = torch.zeros_like(ep_ret)
@@ -209,7 +224,12 @@ def rollout(cfg: PPOConfig, env: Environment, flatten_obs: Callable,
     term_values = []
     for t in range(cfg.horizon):
         mean, log_std, value = net(_norm(cfg, state, obs))
-        action = DiagGauss.sample(mean, log_std, None if noise is None else noise[t], generator)
+        eps = None if noise is None else noise[t]
+        if eps is None and rows is not None:
+            lo, hi, total = rows
+            eps = torch.randn((total,) + mean.shape[1:], generator=generator,
+                              device=mean.device, dtype=mean.dtype)[lo:hi]
+        action = DiagGauss.sample(mean, log_std, eps, generator)
         log_prob = DiagGauss.log_prob(mean, log_std, action)
         env_state, ts = env.step(env_state, action, generator)
         # The bootstrap target at `done` is V(terminal obs); it is computed
@@ -305,18 +325,35 @@ def _loss_fn(cfg: PPOConfig, net: PPOActorCritic, batch, kl_beta: Tensor, ent_co
     return surrogate_loss(cfg, mean, log_std, value, rest, kl_beta, ent_coef)
 
 
+def adam_direction(grads: dict[str, Tensor], opt: AdamState | ZeroAdamState, axis,
+                   eps: float) -> dict[str, Tensor]:
+    """Adam's direction from the clipped gradients: ZeRO's over `axis`'s
+    data ranks for a ZeroAdamState, the replicated one otherwise."""
+    if isinstance(opt, ZeroAdamState):
+        return scale_by_zero_adam(grads, opt, axis, eps=eps)
+    return scale_by_adam(grads, opt, eps=eps)
+
+
 def apply_gradients(cfg: PPOConfig, state: PPOTrainState, loss: Tensor, lr: Tensor,
                     axis=None) -> Tensor:
     """One optimizer step on `loss`: the gradients averaged across `axis`'s
-    ranks (one flat all-reduce), global-norm clip, Adam, the step scaled by
-    `lr` (cfg.lr · lr_scale); the network's parameters move in place.
-    Returns the averaged gradient's norm."""
+    data ranks (one flat all-reduce), completed over the model axis for a
+    sharded network (`parallel.tp`), global-norm clip, Adam (ZeRO's under
+    a ZeroAdamState), the step scaled by `lr` (cfg.lr · lr_scale); the
+    network's parameters move in place. Returns the averaged gradient's
+    norm."""
     names, params = zip(*state.net.named_parameters())
     grads = dict(zip(names, pmean_flat(torch.autograd.grad(loss, params), axis)))
+    sharded = tp.sharding_of(state.net)
     with torch.no_grad():
-        g_norm = global_norm(grads.values())
+        if sharded is None:
+            g_norm = global_norm(grads.values())
+        else:
+            grads = sharded.complete_grads(grads)
+            g_norm = sharded.global_norm(grads)
         guards.assert_finite(g_norm, "ppo.update.grad_norm")
-        updates = scale_by_adam(clip_by_global_norm(grads, cfg.max_grad_norm), state.opt_state)
+        updates = adam_direction(clip_by_global_norm(grads, cfg.max_grad_norm, g_norm),
+                                 state.opt_state, axis, 1e-5)
         for n, p in zip(names, params):
             p.add_(lr * (-1.0 * updates[n]))
         return g_norm
@@ -367,8 +404,14 @@ def update(cfg: PPOConfig, state: PPOTrainState, traj: Trajectory,
     net = state.net
     with torch.no_grad():
         obs = _norm(cfg, state, traj.obs)
-        adv, vtarg = gae(traj.reward, traj.value, traj.next_value, traj.discount, traj.done,
-                         cfg.gamma, cfg.lam)
+        if cfg.time_shards > 1:  # GAE with its reverse scan split over the time axis
+            adv = replicated_reverse_scan(*gae_delta_coef(
+                traj.reward, traj.value, traj.next_value, traj.discount, traj.done, cfg.gamma,
+                cfg.lam), axis)
+            vtarg = adv + traj.value
+        else:
+            adv, vtarg = gae(traj.reward, traj.value, traj.next_value, traj.discount,
+                             traj.done, cfg.gamma, cfg.lam)
         if cfg.normalize_adv:
             adv = normalize_advantages(adv, axis)
     N = T * B

@@ -8,11 +8,14 @@ The run is on "cuda" unless `--device cpu` is given (the reference picks
 its platform with SURREAL_TPU_PLATFORM); the device is not part of
 `config.json`.
 
-`--session.mesh.data N` trains data-parallel over N ranks (the data axis;
-A15b has the others): this command spawns them, one process each, meeting
-at a file store it makes. With `--session.multihost.{coordinator,
-num_processes,process_id}` each launched process runs N / num_processes
-ranks and they meet at the coordinator, host:port. Processes that share a
+`--session.mesh.data D --session.mesh.model M --session.mesh.time T`
+trains over a mesh of D x M x T ranks (`parallel.mesh`: the data axis
+shards the envs, the model axis the networks' kernels, the time axis the
+GAE scan; `--learner.zero_optimizer true` splits Adam's moments over the
+data axis): this command spawns them, one process each, meeting at a file
+store it makes. With `--session.multihost.{coordinator,num_processes,
+process_id}` each launched process runs D·M·T / num_processes ranks and
+they meet at the coordinator, host:port. Processes that share a
 host are given LOCAL_RANK, their index among them, and LOCAL_WORLD_SIZE,
 their count, as torchrun gives them: their ranks then take distinct cards,
 and the backend counts every rank of the host (`parallel.mesh`).
@@ -22,6 +25,9 @@ Usage:
         --session.experiment_name run1 --learner.lr 1e-4
     python -m surreal_tpu_torch.cli.main train ppo --env.env_name cheetah-run \\
         --session.mesh.data 2 --device cpu
+    python -m surreal_tpu_torch.cli.main train ppo --env.env_name cheetah-run \\
+        --session.mesh.model 2   # or --session.mesh.time 2, or
+        # --session.mesh.data 2 --learner.zero_optimizer true
     python -m surreal_tpu_torch.cli.main eval --experiment results/run1 [--best]
     python -m surreal_tpu_torch.cli.main envs
     python -m surreal_tpu_torch.cli.main bench
@@ -41,8 +47,8 @@ import torch
 from surreal_tpu_torch.cli.configs import generate_configs, to_algo_config
 from surreal_tpu_torch.config import Config
 from surreal_tpu_torch.device import resolve as resolve_device
-from surreal_tpu_torch.parallel.mesh import (A15B, distributed_init, host_slots, make_mesh,
-                                             spawn)
+from surreal_tpu_torch.parallel.zero import uses_zero
+from surreal_tpu_torch.parallel.mesh import distributed_init, host_slots, make_mesh, spawn
 from surreal_tpu_torch.utils import get_logger
 
 
@@ -68,35 +74,50 @@ def _parse_overrides(unknown: list[str]) -> dict:
 
 
 def _mesh_layout(session: Config, device: str):
-    """session.mesh and session.multihost -> (data, local, first,
-    coordinator), or None for one device (no mesh). This process runs
-    `local` ranks, global ranks first .. first + local - 1, of a data axis
-    of `data`; `coordinator` is where they meet (None: this command's own
-    ranks, which meet at a file store it makes). data='all' (or unset with
-    the multihost flags) means one rank per visible card, one on the CPU,
-    in each process. With the multihost flags each process runs
-    data / num_processes ranks: global rank process_id x local + i, the
-    reference's "a process holds several mesh devices"."""
+    """session.mesh and session.multihost -> (data, model, time, local,
+    first, coordinator), or None for one device (no mesh). This process
+    runs `local` ranks, global ranks first .. first + local - 1, of a mesh
+    of data x model x time; `coordinator` is where they meet (None: this
+    command's own ranks, which meet at a file store it makes). data='all'
+    (or unset with the multihost flags or a model or time axis) means one
+    rank per visible card (one on the CPU) in each process, divided by
+    model x time, at least 1. With the multihost flags each process runs
+    data·model·time / num_processes ranks: global rank process_id x local +
+    i, the reference's "a process holds several mesh devices"."""
     m, mh = session.mesh, session.multihost
-    if int(m.model) != 1 or int(m.time) != 1:
-        raise NotImplementedError(f"session.mesh.model and session.mesh.time > 1: {A15B}")
+    model, time = int(m.model), int(m.time)
     multihost = any(v is not None for v in mh.values())
-    if m.data is None and not multihost:
+    if m.data is None and not multihost and model == time == 1:
         return None
     if multihost and None in (mh.coordinator, mh.num_processes, mh.process_id):
         raise ValueError("session.multihost needs coordinator, num_processes and process_id")
     processes = int(mh.num_processes) if multihost else 1
     if m.data in (None, "all"):
         cards = resolve_device(device).type == "cuda"
-        data = (torch.cuda.device_count() if cards else 1) * processes
+        ranks = (torch.cuda.device_count() if cards else 1) * processes
+        data = max(ranks // (model * time), 1)
     else:
         data = int(m.data)
-    if data % processes != 0:
-        raise ValueError(f"session.mesh.data {data} is not a multiple of "
+    world = data * model * time
+    if world % processes != 0:
+        raise ValueError(f"session.mesh's {data}x{model}x{time} ranks are not a multiple of "
                          f"session.multihost.num_processes {processes}")
-    local = data // processes
+    local = world // processes
     first = int(mh.process_id) * local if multihost else 0
-    return data, local, first, str(mh.coordinator) if multihost else None
+    return data, model, time, local, first, str(mh.coordinator) if multihost else None
+
+
+def _check_layout(learner: Config, data: int, model: int, time: int) -> None:
+    """The trainers' refusals of a layout, before any rank starts."""
+    algo_cfg = to_algo_config(learner)
+    if learner.algo == "ppo":
+        from surreal_tpu_torch.train.ppo_trainer import check_layout
+
+        check_layout(algo_cfg, model, time, bool(learner.use_lstm), bool(learner.overlap))
+    else:
+        from surreal_tpu_torch.train.ddpg_trainer import check_layout
+
+        check_layout(model, time)
 
 
 def _build_trainer(learner: Config, env_cfg: Config, session: Config, device: str, mesh=None):
@@ -130,14 +151,15 @@ def cmd_train(algo: str, overrides: dict, device: str = "cuda") -> int:
     layout = _mesh_layout(session, device)
     if layout is None:
         return _train(algo, learner, env_cfg, session, device, mesh=None)
-    data, local, first, coordinator = layout
-    if data == 1:  # one rank: a mesh without a process group
+    data, model, time, local, first, coordinator = layout
+    _check_layout(learner, data, model, time)
+    if data * model * time == 1:  # one rank: a mesh without a process group
         return _train(algo, learner, env_cfg, session, device, make_mesh(1, device=device))
     store = None
     if coordinator is None:  # this command's own ranks meet at a file store
         store = tempfile.mkdtemp(prefix="surreal_tpu_torch_ranks_")
         coordinator = "file://" + os.path.join(store, "store")
-    args = (algo, overrides, device, data, first, coordinator)
+    args = (algo, overrides, device, (data, model, time), first, coordinator)
     try:
         if local == 1:  # LOCAL_RANK and LOCAL_WORLD_SIZE are the launcher's
             _train_rank(0, *args)
@@ -153,17 +175,19 @@ def cmd_train(algo: str, overrides: dict, device: str = "cuda") -> int:
     return 0
 
 
-def _train_rank(i: int, algo: str, overrides: dict, device: str, data: int, first: int,
-                coordinator: str) -> None:
-    """Rank first + i of `data`: joins the process group and trains."""
+def _train_rank(i: int, algo: str, overrides: dict, device: str, shape: tuple[int, int, int],
+                first: int, coordinator: str) -> None:
+    """Rank first + i of the data x model x time mesh `shape`: joins the
+    process group and trains."""
     import torch.distributed as dist
 
-    distributed_init(coordinator, data, first + i, device=device)
+    world = shape[0] * shape[1] * shape[2]
+    distributed_init(coordinator, world, first + i, device=device)
     try:
         learner, env_cfg, session = generate_configs(algo, overrides)
-        mesh = make_mesh(data, device=device)
+        mesh = make_mesh(*shape, device=device)
         get_logger(f"cli.rank{mesh.rank}").info(
-            "rank %d of %d on %s: LOCAL_RANK %s of LOCAL_WORLD_SIZE %s", mesh.rank, data,
+            "rank %d of %d on %s: LOCAL_RANK %s of LOCAL_WORLD_SIZE %s", mesh.rank, world,
             mesh.device, os.environ.get("LOCAL_RANK", 0), os.environ.get("LOCAL_WORLD_SIZE", 1))
         _train(algo, learner, env_cfg, session, device, mesh)
     finally:
@@ -172,7 +196,7 @@ def _train_rank(i: int, algo: str, overrides: dict, device: str, data: int, firs
 
 def _train(algo: str, learner: Config, env_cfg: Config, session: Config, device: str,
            mesh) -> int:
-    """The training session of one device, or of one rank of a data mesh:
+    """The training session of one device, or of one rank of a mesh:
     only the primary rank writes config.json, the event files, the videos
     and meta.json; every rank evaluates (their scores are equal, so they
     make the same best-checkpoint decision) and reaches every collective
@@ -200,7 +224,7 @@ def _train(algo: str, learner: Config, env_cfg: Config, session: Config, device:
 
     ckpt = Checkpointer(
         os.path.join(exp_dir, "checkpoints"), keep_latest=int(session.keep_latest_checkpoints),
-        mesh=mesh, rank_keys=trainer.rank_keys,
+        mesh=mesh, rank_keys=trainer.rank_keys, zero=uses_zero(trainer.cfg),
     )
     tb = MetricsWriter(os.path.join(exp_dir, "tb") if session.tensorboard and primary else None)
 
@@ -273,7 +297,6 @@ def cmd_eval(experiment: str, best: bool, episodes: int, stochastic: bool,
     learner = Config(saved["learner"])
     env_cfg = Config(saved["env"])
     session = Config(saved["session"])
-    _mesh_layout(session, device)  # raises for the axes that are not ported
     # the learner alone, on one device, whatever mesh trained it
     trainer = _build_trainer(learner, env_cfg, session, device)
     ckpt = Checkpointer(os.path.join(experiment, "checkpoints"), rank_keys=trainer.rank_keys)

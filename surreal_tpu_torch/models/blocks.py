@@ -18,7 +18,29 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-_ACTIVATIONS = {"tanh": torch.tanh, "relu": torch.relu}
+# flax.linen's elementwise activations by name (the reference's MLP takes
+# `getattr(nn, activation)`), with flax's arguments: gelu is the tanh
+# approximation, leaky_relu's slope 0.01, celu's and elu's alpha 1.
+_ACTIVATIONS = {
+    "celu": F.celu,
+    "elu": F.elu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "hard_sigmoid": F.hardsigmoid,
+    "hard_silu": F.hardswish,
+    "hard_swish": F.hardswish,
+    "hard_tanh": F.hardtanh,
+    "leaky_relu": lambda x: F.leaky_relu(x, 0.01),
+    "log_sigmoid": F.logsigmoid,
+    "relu": torch.relu,
+    "relu6": F.relu6,
+    "selu": F.selu,
+    "sigmoid": torch.sigmoid,
+    "silu": F.silu,
+    "soft_sign": F.softsign,
+    "softplus": F.softplus,
+    "swish": F.silu,
+    "tanh": torch.tanh,
+}
 
 
 def resolve_dtype(dtype: str | torch.dtype) -> torch.dtype:
@@ -35,8 +57,10 @@ def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     cast to it and the bias is added after the product has been rounded
     (flax: `y = dot(x, k); y += b`, two roundings); F.linear would add it
     before the rounding (cuBLAS's epilogue, oneDNN's post-op) and differs
-    in ~30% of bfloat16 outputs. Float32 keeps F.linear."""
-    if x.dtype == torch.float32:
+    in ~30% of bfloat16 outputs. Float32 keeps F.linear. A layer that is
+    not an nn.Linear (a tensor-parallel shard, `parallel.tp`) applies its
+    own forward, which keeps this arithmetic."""
+    if x.dtype == torch.float32 or not isinstance(layer, nn.Linear):
         return layer(x)
     return x @ layer.weight.to(x.dtype).T + layer.bias.to(x.dtype)
 
@@ -70,7 +94,8 @@ class MLP(nn.Module):
         super().__init__()
         self.compute_dtype = compute_dtype
         if activation not in _ACTIVATIONS:
-            raise NotImplementedError(f"activation {activation!r} is not ported yet")
+            raise ValueError(f"activation {activation!r} is not an elementwise activation "
+                             f"of flax.linen ({', '.join(sorted(_ACTIVATIONS))})")
         self.activation = _ACTIVATIONS[activation]
         self.num_layers = len(hidden)
         for i, h in enumerate(hidden):

@@ -96,3 +96,32 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor],
         else:
             node[leaf] = arr
     return {"params": tree["stem"] if stem_key == "" else tree}
+
+
+def flax_leaves(shapes: Mapping[str, tuple[int, ...]], stem_key: str = "stem"):
+    """The leaves of `params_to_flax`'s tree for parameters of these shapes
+    (name -> shape, in the module's order), in JAX's flatten order (a
+    dict's keys sorted, at every level: `ravel_pytree`'s order): a list of
+    (flax path, port name, flat indices). The flat indices say where each
+    element of the leaf, in its row-major order, sits in the concatenation
+    of the port's flattened parameters; a port parameter may give several
+    leaves (the LSTM's gates)."""
+    index, starts, n = {}, [], 0
+    for name, shape in shapes.items():
+        size = int(np.prod(shape, dtype=np.int64))
+        index[name] = torch.arange(n, n + size, dtype=torch.int64).reshape(shape)
+        starts.append((n, name))
+        n += size
+    out = []
+
+    def walk(node, path):
+        for k in sorted(node):
+            if isinstance(node[k], Mapping):
+                walk(node[k], path + (k,))
+            else:
+                flat = np.asarray(node[k]).reshape(-1)
+                owner = max((s for s in starts if s[0] <= flat[0]), key=lambda s: s[0])[1]
+                out.append((path + (k,), owner, flat))
+
+    walk(params_to_flax(index, stem_key), ())
+    return out

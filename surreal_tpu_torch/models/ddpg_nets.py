@@ -42,6 +42,8 @@ def _stem(obs_dim, pixel_obs: bool, generator: torch.Generator | None,
 
 
 class DDPGActor(nn.Module):
+    flax_stem_key = "ConvStem_0"  # the compact flax nets' stem (models.convert)
+
     def __init__(self, obs_dim: int | Sequence[int], action_dim: int,
                  hidden: Sequence[int] = (300, 200), layer_norm: bool = True,
                  pixel_obs: bool = False, detach_stem: bool = False,
@@ -64,6 +66,8 @@ class DDPGActor(nn.Module):
 
 
 class DDPGCritic(nn.Module):
+    flax_stem_key = "ConvStem_0"  # the compact flax nets' stem (models.convert)
+
     def __init__(self, obs_dim: int | Sequence[int], action_dim: int,
                  hidden: Sequence[int] = (400, 300), layer_norm: bool = True,
                  pixel_obs: bool = False, generator: torch.Generator | None = None,

@@ -30,6 +30,16 @@ def discounted_reverse_scan(x: Tensor, coef: Tensor, associative: bool = True) -
     return ys
 
 
+def reverse_scan_and_products(x: Tensor, coef: Tensor) -> tuple[Tensor, Tensor]:
+    """(y, P): the associative `discounted_reverse_scan` of x and coef, and
+    the suffix products P_t = coef_t·coef_{t+1}·…·coef_{T−1} that the same
+    scan composes. The products are the reference's `jax.lax.associative_
+    scan(jnp.multiply, coef, reverse=True)`: its recursion multiplies in
+    the same association."""
+    c, y = _odd_even_scan((coef.flip(0), x.flip(0)))
+    return y.flip(0), c.flip(0)
+
+
 def _combine(a: tuple[Tensor, Tensor], b: tuple[Tensor, Tensor]) -> tuple[Tensor, Tensor]:
     """The map (c_a, x_a) followed by (c_b, x_b), as the reference's `combine`."""
     (c_a, x_a), (c_b, x_b) = a, b
@@ -61,12 +71,13 @@ def gae_plain(rewards: Tensor, values: Tensor, next_values: Tensor, discounts: T
     """delta = r + γ·disc·V' − V; A_t = delta_t + γλ·disc_t·(1 − done_t)·A_{t+1};
     returns (A, A + V). The plain version of the kernel in `gae_kernel`:
     the sequential scan."""
-    adv = discounted_reverse_scan(*_delta_coef(rewards, values, next_values, discounts, dones,
-                                               gamma, lam), associative=False)
+    adv = discounted_reverse_scan(*gae_delta_coef(rewards, values, next_values, discounts,
+                                                  dones, gamma, lam), associative=False)
     return adv, adv + values
 
 
-def _delta_coef(rewards, values, next_values, discounts, dones, gamma, lam):
+def gae_delta_coef(rewards, values, next_values, discounts, dones, gamma, lam):
+    """(delta, coef) of GAE's recurrence A_t = delta_t + coef_t·A_{t+1}."""
     delta = rewards + gamma * discounts * next_values - values
     coef = gamma * lam * discounts * (1.0 - dones.to(values.dtype))
     return delta, coef
@@ -82,7 +93,7 @@ def gae_chunked_plain(rewards: Tensor, values: Tensor, next_values: Tensor,
     chunk's end; the carries are then composed from the last chunk down and
     A_t = y_t + p_t·carry. With one chunk it is `gae_plain` itself."""
     T = rewards.shape[0]
-    delta, coef = _delta_coef(rewards, values, next_values, discounts, dones, gamma, lam)
+    delta, coef = gae_delta_coef(rewards, values, next_values, discounts, dones, gamma, lam)
     L = -(-T // chunks)
     bounds = [(lo, min(lo + L, T)) for lo in range(0, T, L)]
     y, p = torch.empty_like(delta), torch.empty_like(delta)
@@ -119,7 +130,7 @@ def gae(rewards: Tensor, values: Tensor, next_values: Tensor, discounts: Tensor,
         return adv, vtarg
     if backend != "xla":
         raise ValueError(f"unknown gae backend {backend!r} (expected 'xla' or 'pallas')")
-    delta, coef = _delta_coef(rewards, values, next_values, discounts, dones, gamma, lam)
+    delta, coef = gae_delta_coef(rewards, values, next_values, discounts, dones, gamma, lam)
     adv = discounted_reverse_scan(delta, coef, associative=associative)
     guards.assert_finite(adv, "ops.gae.advantages")
     return adv, adv + values

@@ -1,6 +1,6 @@
-"""The data mesh axis and its sharded train steps, and versioned actor
-snapshots. The other mesh axes and ZeRO are not ported yet (ROADMAP.md,
-Queue A: A15b)."""
+"""The data x model x time mesh and its sharded train steps, ZeRO's split
+optimizer, the time-sharded scan, tensor parallelism, and versioned actor
+snapshots (the reference's surreal_tpu/parallel)."""
 
 from surreal_tpu_torch.parallel.dp import (
     make_sharded_ddpg_step,
@@ -15,3 +15,4 @@ from surreal_tpu_torch.parallel.param_sync import (
     param_sync_init,
     param_sync_refresh,
 )
+from surreal_tpu_torch.parallel.tshard import time_sharded_reverse_scan

@@ -10,17 +10,24 @@ carry, OU noise and replay shard) and calls the algorithm's step with
 Each step reduces its metrics as the reference's does: `psum` of
 `episodes_done` and `episode_return_sum`, `pmean` of the rest.
 
-Randomness. The reference folds the shard's index into the step's key
-(`fold_in(key, shard_id)`). Here each rank draws from its own
-`torch.Generator`, made by `fold_in(generator, seed, rank)`: rank 0 keeps
-the trainer's generator as it is, so a 1-rank mesh draws exactly what the
-one-device trainer draws; rank r > 0 reseeds it with the first 64-bit word
-of numpy's `SeedSequence([seed, r])`. As the reference's trainers do
-("reset all, then shard"), the starting env states are drawn for the whole
-batch, on every rank, from the shared seed, before the fold; each rank
-keeps its slice. The steps take `noise=` / `perms=` (and DDPG's `eps=`,
-`indices=`, `target_eps=`, `aug_offsets=`) so tests can feed each rank the
-reference's per-shard draws.
+The train state is replicated but for ZeRO's Adam moments
+(`parallel.zero`), which are split over the data axis: `replicate` leaves a
+`ZeroAdamState` as it is, each rank's chunk its own. Its type says so, where
+the reference's `shard_map` needs a spec of the state.
+
+Randomness. The reference folds the shard's data index into the step's key
+(`fold_in(key, axis_index(DATA_AXIS))`). Here each rank draws from its own
+`torch.Generator`, made by `fold_in(generator, seed, d)` with d its index on
+the data axis: data index 0 keeps the trainer's generator as it is, so a
+1-rank mesh draws exactly what the one-device trainer draws; d > 0 reseeds
+it with the first 64-bit word of numpy's `SeedSequence([seed, d])`. So the
+time and model ranks of one data index draw alike and hold the same envs.
+As the reference's trainers do ("reset all, then shard"), the starting env
+states are drawn for the whole batch, on every rank, from the shared seed,
+before the fold; each rank keeps its data index's slice. The steps take
+`noise=` / `perms=` (and DDPG's `eps=`, `indices=`, `target_eps=`,
+`aug_offsets=`) so tests can feed each rank the reference's per-shard
+draws.
 
 The algorithm modules are imported inside the makers: they import
 `parallel.param_sync`, and so this package.
@@ -35,18 +42,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from surreal_tpu_torch.parallel.mesh import Mesh, data_axis_size, reduce_metrics
-
-# The one placement until ZeRO (A15b): every leaf of the train state is
-# replicated on every rank.
-REPLICATED = "replicated"
+from surreal_tpu_torch.parallel import zero
+from surreal_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, data_axis_size, reduce_metrics
 
 
-def fold_in(generator: torch.Generator, seed: int, rank: int) -> torch.Generator:
-    """This rank's stream: `generator` itself on rank 0; on rank r > 0,
-    `generator` reseeded with SeedSequence([seed, r])'s first 64-bit word."""
-    if rank > 0:
-        word = np.random.SeedSequence([seed, rank]).generate_state(1, np.uint64)[0]
+def fold_in(generator: torch.Generator, seed: int, index: int) -> torch.Generator:
+    """The stream of data index `index`: `generator` itself for 0; else
+    `generator` reseeded with SeedSequence([seed, index])'s first 64-bit
+    word."""
+    if index > 0:
+        word = np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0]
         generator.manual_seed(int(word))
     return generator
 
@@ -66,10 +71,10 @@ def _map_tensors(fn: Callable, tree):
 
 
 def shard_env_batch(mesh: Mesh, tree):
-    """This rank's slice of a (B, ...)-leading tree: rows [r·B/S, (r+1)·B/S)
-    for rank r of S, so env j of rank r is env r·B/S + j of the whole
-    batch."""
-    shards, r = data_axis_size(mesh), mesh.rank
+    """This rank's slice of a (B, ...)-leading tree over the data axis: rows
+    [d·B/S, (d+1)·B/S) for data index d of S, so env j of the rank is env
+    d·B/S + j of the whole batch (the reference's P(DATA_AXIS))."""
+    shards, r = data_axis_size(mesh), mesh.index[DATA_AXIS]
 
     def take(x):
         b = x.shape[0] // shards
@@ -79,6 +84,8 @@ def shard_env_batch(mesh: Mesh, tree):
 
 
 def _tensors(tree) -> list[torch.Tensor]:
+    if isinstance(tree, zero.ZeroAdamState):
+        return []  # each data rank's chunk of the moments is its own
     if isinstance(tree, torch.Tensor):
         return [tree]
     if isinstance(tree, nn.Module):
@@ -94,7 +101,7 @@ def _tensors(tree) -> list[torch.Tensor]:
 
 def replicate(mesh: Mesh, tree):
     """Every tensor of `tree` (modules, dataclasses, dicts, lists) set to
-    rank 0's, in place; returns `tree`."""
+    rank 0's, in place, but for ZeRO's moment chunks; returns `tree`."""
     if mesh.group is not None:
         import torch.distributed as dist
 
@@ -102,19 +109,6 @@ def replicate(mesh: Mesh, tree):
             for t in _tensors(tree):
                 dist.broadcast(t.data, src=0, group=mesh.group)
     return tree
-
-
-def train_state_spec(state) -> str:
-    """The train state's placement: replicated (ZeRO's sharded moments are
-    A15b)."""
-    return REPLICATED
-
-
-def place_by_spec(mesh: Mesh, tree, spec):
-    """Places `tree` as `spec` (train_state_spec's) says: replicated, the
-    only placement yet."""
-    assert spec == REPLICATED, spec
-    return replicate(mesh, tree)
 
 
 def make_sharded_ppo_step(cfg, env, flatten_obs: Callable, mesh: Mesh):

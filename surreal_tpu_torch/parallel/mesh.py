@@ -1,13 +1,16 @@
-"""The data mesh, distributed initialization and the collectives (port of
-surreal_tpu/parallel/mesh.py, data axis).
+"""The data x model x time mesh, distributed initialization and the
+collectives (port of surreal_tpu/parallel/mesh.py).
 
 In JAX one process holds every device of its host and a `Mesh` names them.
 In torch's idiom one process is one rank, and a rank holds one mesh device.
 A `Mesh` here is that rank's view of the mesh: the axis sizes, its rank and
-the world size, its device and the process group. `pmean` and `psum`
-mirror `jax.lax.pmean` and `psum` over the data axis; with `axis=None` they
-are the identity, so the algorithms' one-device path computes what it
-always did.
+the world size, its index on each axis, its device, the group of every rank
+and one group per axis. The ranks are laid out as the reference's devices,
+`reshape(data, model, time)`: rank = d·model·time + m·time + t. An axis's
+group holds the ranks that share the other two indices. `psum`, `pmean`
+and `all_gather` mirror `jax.lax`'s over one axis, the data axis unless
+named; over a size-1 axis, or with `axis=None`, they are the identity, so
+the algorithms' one-device path computes what it always did.
 
 The backend is chosen by topology, once, and printed by rank 0: NCCL when
 every rank of a host has its own card; gloo when ranks share a card (NCCL
@@ -39,7 +42,7 @@ TIME_AXIS = "time"
 # A rank that dies leaves its peers blocked in a collective: the process
 # group's timeout bounds how long.
 TIMEOUT_S = 600
-A15B = "not ported yet (ROADMAP.md, Queue A: A15b, the model and time axes and ZeRO)"
+AXES = (DATA_AXIS, MODEL_AXIS, TIME_AXIS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,12 +53,30 @@ class Mesh:
     rank: int
     world_size: int
     device: torch.device  # the rank's device
-    group: object | None  # the process group; None for one rank without one
+    group: object | None  # the group of every rank; None for one rank without one
+    # axis name -> this rank's index on it (default: from `rank`, as laid out)
+    index: Mapping[str, int] | None = None
+    # axis name -> the group of this rank and the ranks that share its other
+    # two indices; None for an axis of size 1 (default: None for every axis)
+    groups: Mapping[str, object | None] | None = None
+
+    def __post_init__(self):
+        m, t = self.shape[MODEL_AXIS], self.shape[TIME_AXIS]
+        if self.index is None:
+            object.__setattr__(self, "index", {DATA_AXIS: self.rank // (m * t),
+                                               MODEL_AXIS: (self.rank // t) % m,
+                                               TIME_AXIS: self.rank % t})
+        if self.groups is None:
+            object.__setattr__(self, "groups", dict.fromkeys(AXES))
 
     @property
     def primary(self) -> bool:
         """The rank that does the single-writer IO."""
         return self.rank == 0
+
+    def layout(self) -> dict[str, int]:
+        """The axis sizes, in the mesh's order."""
+        return {ax: self.shape[ax] for ax in AXES}
 
 
 def local_rank() -> int:
@@ -125,22 +146,52 @@ def distributed_init(coordinator: str | None = None, num_processes: int | None =
     return backend
 
 
+def axis_members(shape: Mapping[str, int], axis: str) -> list[list[int]]:
+    """The global ranks of each group of `axis`, in the order every rank
+    creates them: groups by the other two indices in row-major order, each
+    group's ranks by their index on `axis`."""
+    sizes = [shape[ax] for ax in AXES]
+    k = AXES.index(axis)
+    strides = [sizes[1] * sizes[2], sizes[2], 1]
+    others = [i for i in range(3) if i != k]
+    groups = []
+    for a in range(sizes[others[0]]):
+        for b in range(sizes[others[1]]):
+            base = a * strides[others[0]] + b * strides[others[1]]
+            groups.append([base + i * strides[k] for i in range(sizes[k])])
+    return groups
+
+
 def make_mesh(data: int | None = None, model: int = 1, time: int = 1,
               device: str | torch.device = "cuda") -> Mesh:
     """This rank's mesh over every rank of the process group (one rank
     without one): data x model x time. `data=None` uses every remaining
-    rank for the data axis."""
-    if model != 1 or time != 1:
-        raise NotImplementedError(f"mesh model and time axes > 1: {A15B}")
+    rank for the data axis. Every rank must call it, in the same order as
+    its peers: it creates the axes' groups, which is collective."""
     init = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if init else 1
     rank = dist.get_rank() if init else 0
     if data is None:
+        assert world % (model * time) == 0, (
+            f"{world} ranks do not divide into model {model} x time {time}")
         data = world // (model * time)
     assert data * model * time == world, f"{data}x{model}x{time} != {world} ranks"
-    return Mesh(shape={DATA_AXIS: data, MODEL_AXIS: model, TIME_AXIS: time}, rank=rank,
-                world_size=world, device=rank_device(device, local_rank()),
-                group=dist.group.WORLD if init else None)
+    shape = {DATA_AXIS: data, MODEL_AXIS: model, TIME_AXIS: time}
+    groups: dict[str, object | None] = {}
+    for ax in AXES:
+        groups[ax] = None
+        if shape[ax] == 1:
+            continue  # a size-1 axis: its collectives are the identity
+        if shape[ax] == world:
+            groups[ax] = dist.group.WORLD
+            continue
+        for members in axis_members(shape, ax):  # every rank creates every group
+            g = dist.new_group(members)
+            if rank in members:
+                groups[ax] = g
+    return Mesh(shape=shape, rank=rank, world_size=world,
+                device=rank_device(device, local_rank()),
+                group=dist.group.WORLD if init else None, groups=groups)
 
 
 def data_axis_size(mesh: Mesh) -> int:
@@ -148,56 +199,80 @@ def data_axis_size(mesh: Mesh) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Collectives over the data axis (`axis` is a Mesh, or None: the identity)
+# Collectives over one axis (`axis` is a Mesh, or None: the identity; `name`
+# the axis, the data axis by default)
 # ---------------------------------------------------------------------------
 
 
-def psum(x: torch.Tensor, axis: Mesh | None) -> torch.Tensor:
-    """The sum of `x` over the ranks (jax.lax.psum)."""
-    if axis is None or axis.group is None:
+def _group(axis: Mesh | None, name: str):
+    return None if axis is None else axis.groups[name]
+
+
+def psum(x: torch.Tensor, axis: Mesh | None, name: str = DATA_AXIS) -> torch.Tensor:
+    """The sum of `x` over the axis's ranks (jax.lax.psum)."""
+    group = _group(axis, name)
+    if group is None:
         return x
     y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, group=axis.group)
+    dist.all_reduce(y, group=group)
     return y
 
 
-def pmean(x: torch.Tensor, axis: Mesh | None) -> torch.Tensor:
-    """The mean of `x` over the ranks: psum / n, as jax.lax.pmean does."""
-    if axis is None or axis.group is None:
+def pmean(x: torch.Tensor, axis: Mesh | None, name: str = DATA_AXIS) -> torch.Tensor:
+    """The mean of `x` over the axis's ranks: psum / n, as jax.lax.pmean does."""
+    if _group(axis, name) is None:
         return x
-    return psum(x, axis) / data_axis_size(axis)
+    return psum(x, axis, name) / axis.shape[name]
 
 
-def pmean_flat(tensors: Sequence[torch.Tensor], axis: Mesh | None) -> list[torch.Tensor]:
+def pmean_flat(tensors: Sequence[torch.Tensor], axis: Mesh | None,
+               name: str = DATA_AXIS) -> list[torch.Tensor]:
     """`pmean` of each tensor, through one all-reduce of one flat buffer."""
-    if axis is None or axis.group is None:
+    group = _group(axis, name)
+    if group is None:
         return list(tensors)
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=axis.group)
-    flat = flat / data_axis_size(axis)
+    dist.all_reduce(flat, group=group)
+    flat = flat / axis.shape[name]
     return [f.view_as(t) for f, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
-def reduce_metrics(metrics: dict, axis: Mesh | None) -> dict:
+def all_gather(x: torch.Tensor, axis: Mesh | None, name: str = DATA_AXIS,
+               dim: int = 0) -> torch.Tensor:
+    """The axis's ranks' `x`, concatenated along `dim` in the order of
+    their index on the axis (jax.lax.all_gather(..., tiled=True))."""
+    group = _group(axis, name)
+    if group is None:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(axis.shape[name])]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim)
+
+
+def reduce_metrics(metrics: dict, axis: Mesh | None, name: str = DATA_AXIS) -> dict:
     """The sharded steps' metric reduction (reference parallel/dp.py):
     `psum` of the episode counts and return sums, `pmean` of the rest,
     through one all-reduce; then every rank holds the same values."""
-    if axis is None or axis.group is None:
+    group = _group(axis, name)
+    if group is None:
         return metrics
     summed = ("episodes_done", "episode_return_sum")
     keys = list(metrics)
     flat = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32, device=axis.device)
                         .reshape(()) for k in keys])
-    dist.all_reduce(flat, group=axis.group)
-    n = data_axis_size(axis)
+    dist.all_reduce(flat, group=group)
+    n = axis.shape[name]
     return {k: flat[i] if k in summed else flat[i] / n for i, k in enumerate(keys)}
 
 
 def barrier(mesh: Mesh | None) -> None:
-    """Returns once every rank has reached it (an all-reduce on the mesh's
-    device, which both backends take)."""
+    """Returns once every rank of the mesh has reached it (an all-reduce on
+    the mesh's device, which both backends take)."""
     if mesh is not None and mesh.group is not None:
-        float(psum(torch.zeros(1, device=mesh.device), mesh))
+        flag = torch.zeros(1, device=mesh.device)
+        dist.all_reduce(flag, group=mesh.group)
+        float(flag)
 
 
 # ---------------------------------------------------------------------------

@@ -7,13 +7,19 @@ onto the device of the state it restores into. Each step directory is
 written under a temporary name and renamed into place, so a run killed
 mid-save leaves the previous checkpoints and no partial one.
 
-Under a data mesh every rank calls `save` and `restore`, in the same
-order. The learner, equal on every rank, is written once, by rank 0, to
-`state.pt`; each rank writes its own part (the trainer's `rank_keys`: its
-envs, generator, carry, OU noise, replay shard) to `rank<r>.pt`, and rank
-0 writes `mesh.json`, {"data": S}. A checkpoint restores only into a mesh
-of its data size (a one-device checkpoint into no mesh). Every collective
-(a barrier) is reached by every rank; only the file writes are rank 0's.
+Under a mesh every rank calls `save` and `restore`, in the same order.
+The learner is written once, by rank 0, to `state.pt`, whole: the
+trainers' full state gathers ZeRO's moment chunks over the data ranks and
+a tensor-parallel network's shards (and their moments) over the model
+ranks, so `state.pt` holds what a one-device run's does, and each rank
+takes its chunk or shard again on load. Each rank writes its own part (the
+trainer's `rank_keys`: its envs, generator, carry, OU noise, replay shard)
+to `rank<r>.pt`, and rank 0 writes `mesh.json`, the axis sizes and ZeRO
+({"data": D, "model": M, "time": T, "zero": bool}). A checkpoint resumes
+only under the layout that wrote it (a one-device checkpoint without a
+mesh); `learner_only` (an evaluation) takes the learner of any. Every
+collective (the gathers, the barriers) is reached by every rank; only the
+file writes are rank 0's.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from typing import Any, Mapping
 
 import torch
 
-from surreal_tpu_torch.parallel.mesh import Mesh, barrier, data_axis_size
+from surreal_tpu_torch.parallel.mesh import Mesh, barrier
 
 STATE_FILE = "state.pt"
 MESH_FILE = "mesh.json"
@@ -40,10 +46,13 @@ class Checkpointer:
     """
 
     def __init__(self, root: str, keep_latest: int = 3, mesh: Mesh | None = None,
-                 rank_keys: tuple[str, ...] = ()):
+                 rank_keys: tuple[str, ...] = (), zero: bool = False):
+        """`zero`: the run's optimizer is ZeRO's (its moments are split over
+        the data axis), part of the layout a checkpoint resumes under."""
         self.root = os.path.abspath(root)
         self.keep_latest = keep_latest
         self.mesh = mesh
+        self.layout = None if mesh is None else {**mesh.layout(), "zero": bool(zero)}
         self.rank_keys = tuple(rank_keys)
         self._primary = mesh is None or mesh.primary
         self._dirs = {"latest": os.path.join(self.root, "latest"),
@@ -88,7 +97,7 @@ class Checkpointer:
             torch.save({k: v for k, v in state.items() if k not in self.rank_keys},
                        os.path.join(tmp, STATE_FILE))
             with open(os.path.join(tmp, MESH_FILE), "w") as f:
-                json.dump({"data": data_axis_size(self.mesh)}, f)
+                json.dump(self.layout, f)
         torch.save({k: v for k, v in state.items() if k in self.rank_keys},
                    os.path.join(tmp, f"rank{self.mesh.rank}.pt"))
 
@@ -155,13 +164,12 @@ class Checkpointer:
             state = {k: v for k, v in state.items() if k not in self.rank_keys}
             state.update({k: v for k, v in target.items() if k in self.rank_keys})
         else:
-            written = _mesh_data(folder)
-            here = None if self.mesh is None else data_axis_size(self.mesh)
-            if written != here:
+            written = _mesh_layout(folder)
+            if written != self.layout:
                 raise ValueError(
                     f"checkpoint {folder} was written by {_describe_mesh(written)} and this "
-                    f"run has {_describe_mesh(here)}: resume it under the same "
-                    "session.mesh.data")
+                    f"run has {_describe_mesh(self.layout)}: resume it under the same "
+                    "session.mesh and learner.zero_optimizer")
             if self.mesh is not None:
                 state.update(torch.load(os.path.join(folder, f"rank{self.mesh.rank}.pt"),
                                         weights_only=True, map_location=device))
@@ -176,17 +184,23 @@ class Checkpointer:
         self.wait()
 
 
-def _mesh_data(folder: str) -> int | None:
-    """The data axis size that wrote a step directory; None for one device."""
+def _mesh_layout(folder: str) -> dict | None:
+    """The layout that wrote a step directory; None for one device. A data
+    mesh's checkpoint from before the model and time axes reads as one with
+    model 1, time 1 and no ZeRO."""
     path = os.path.join(folder, MESH_FILE)
     if not os.path.exists(path):
         return None
     with open(path) as f:
-        return int(json.load(f)["data"])
+        return {"model": 1, "time": 1, "zero": False, **json.load(f)}
 
 
-def _describe_mesh(data: int | None) -> str:
-    return "one device (no mesh)" if data is None else f"a data mesh of {data}"
+def _describe_mesh(layout: dict | None) -> str:
+    if layout is None:
+        return "one device (no mesh)"
+    d, m, t = layout["data"], layout["model"], layout["time"]
+    mesh = f"a data mesh of {d}" if m == t == 1 else f"a {d}x{m}x{t} (data x model x time) mesh"
+    return mesh + (" with ZeRO" if layout["zero"] else "")
 
 
 def _tensors(tree):

@@ -2,7 +2,8 @@
 batch, pixel-wrapped or not, the four networks and the replay ring on the
 device, then runs train steps, on one device or, given a data `mesh`
 (`parallel.mesh`), on this rank's share of the envs with its shard of the
-ring and of the noise ladder (`parallel.dp.make_sharded_ddpg_step`). Pixel
+ring and of the noise ladder (`parallel.dp.make_sharded_ddpg_step`), ZeRO's
+moments split over the data axis under `zero_optimizer`. Pixel
 frames are stored raw, uint8, in the ring and scaled inside the conv
 stems; the Z-filter stays off for them."""
 
@@ -22,7 +23,7 @@ from surreal_tpu_torch.models.blocks import resolve_dtype
 from surreal_tpu_torch.models.ddpg_nets import DDPGActor, DDPGCritic
 from surreal_tpu_torch.models.z_filter import ZFilterState
 from surreal_tpu_torch.parallel import dp
-from surreal_tpu_torch.parallel.mesh import MODEL_AXIS, TIME_AXIS
+from surreal_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, TIME_AXIS
 from surreal_tpu_torch.train.evaluator import evaluate_policy
 from surreal_tpu_torch.train.loop import (
     Trainer,
@@ -32,6 +33,14 @@ from surreal_tpu_torch.train.loop import (
 )
 
 NETS = ("actor", "critic", "target_actor", "target_critic")
+
+
+def check_layout(model: int, time: int) -> None:
+    """The reference trainer's refusal of the model and time axes."""
+    for ax, size in ((MODEL_AXIS, model), (TIME_AXIS, time)):
+        if size > 1:
+            raise ValueError(f"mesh.{ax} > 1 is a PPO-only feature; the DDPG "
+                             "trainer supports the data axis only")
 
 
 class DDPGTrainer(Trainer):
@@ -45,12 +54,12 @@ class DDPGTrainer(Trainer):
                  pixel_kwargs: dict | None = None, env_kwargs: dict | None = None,
                  debug_checks: bool = False, mesh=None):
         cfg = cfg or ddpg.DDPGConfig()
+        if mesh is not None and cfg.zero_optimizer:  # ZeRO's chunks are sized up front
+            cfg = dataclasses.replace(cfg, zero_shards=mesh.shape[DATA_AXIS])
         self.mesh = mesh
         shards = self._check_mesh(num_envs, debug_checks)
-        for ax in (MODEL_AXIS, TIME_AXIS):
-            if mesh is not None and mesh.shape.get(ax, 1) > 1:  # as the reference's
-                raise ValueError(f"mesh.{ax} > 1 is a PPO-only feature; the DDPG "
-                                 "trainer supports the data axis only")
+        if mesh is not None:
+            check_layout(mesh.shape[MODEL_AXIS], mesh.shape[TIME_AXIS])
         self.device = self._resolve_device(device)
         self.env = make_env(env_name, device=self.device, **(env_kwargs or {}))
         if pixel_obs:
@@ -102,7 +111,7 @@ class DDPGTrainer(Trainer):
             self.sigma, self.ou_state = dp.shard_env_batch(mesh, (self.sigma, self.ou_state))
             self._step = dp.make_sharded_ddpg_step(self.cfg, self.env, self._flatten,
                                                    mesh)(self.replay)
-            self.state = dp.place_by_spec(mesh, self.state, dp.train_state_spec(self.state))
+            self.state = dp.replicate(mesh, self.state)
         else:
             self._step = functools.partial(ddpg.train_step, self.cfg, self.env, self._flatten)
 
@@ -117,7 +126,8 @@ class DDPGTrainer(Trainer):
     def full_state(self) -> dict:
         s = self.state
         fs = {**{n: getattr(s, n).state_dict() for n in NETS},
-              "actor_opt": adam_state(s.actor_opt), "critic_opt": adam_state(s.critic_opt),
+              "actor_opt": adam_state(s.actor_opt, self.mesh),
+              "critic_opt": adam_state(s.critic_opt, self.mesh),
               "zfilter": zfilter_state(s.zfilter), "update_step": s.update_step,
               "replay": {"data": dict(self.replay.data), "total": self.replay.total},
               "ou_state": self.ou_state, **self._run_state()}
@@ -129,8 +139,8 @@ class DDPGTrainer(Trainer):
         s = self.state
         for n in NETS:
             getattr(s, n).load_state_dict(fs[n])
-        load_adam_state(s.actor_opt, fs["actor_opt"])
-        load_adam_state(s.critic_opt, fs["critic_opt"])
+        load_adam_state(s.actor_opt, fs["actor_opt"], self.mesh)
+        load_adam_state(s.critic_opt, fs["critic_opt"], self.mesh)
         s.zfilter = ZFilterState(**fs["zfilter"])
         s.update_step = int(fs["update_step"])
         if s.psync is not None:

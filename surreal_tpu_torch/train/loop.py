@@ -1,7 +1,7 @@
 """The loop the trainers share: iterate, sum the episode returns on the
 device, and read the metrics on the host once per log interval; the parts
-of a trainer's full state that every trainer has; and, given a data mesh,
-the share of the env batch that is this rank's."""
+of a trainer's full state that every trainer has; and, given a mesh, the
+share of the env batch that is this rank's."""
 
 from __future__ import annotations
 
@@ -17,8 +17,9 @@ from surreal_tpu_torch.device import resolve as resolve_device
 from surreal_tpu_torch.envs.base import EnvState
 from surreal_tpu_torch.envs.gym_adapter import GymEnv
 from surreal_tpu_torch.models.z_filter import ZFilterState
-from surreal_tpu_torch.parallel import dp
-from surreal_tpu_torch.parallel.mesh import Mesh, data_axis_size
+from surreal_tpu_torch.parallel import dp, zero
+from surreal_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, data_axis_size
+from surreal_tpu_torch.parallel.tp import TPSharding
 from surreal_tpu_torch.utils import guards
 
 log = logging.getLogger("surreal_tpu_torch.train")
@@ -28,8 +29,10 @@ class Trainer:
     """A trainer sets `device`, `env`, `_flatten`, `generator`, `env_state`,
     `obs`, `ep_ret`, `global_iter`, `steps_per_iteration` and
     `debug_checks`, and implements `_iterate` and `full_state` /
-    `load_full_state`. With a data `mesh`, the env batch is this rank's
-    share (`local_envs` of them); the learner is replicated."""
+    `load_full_state`. With a `mesh`, the env batch is this rank's data
+    index's share (`local_envs` of them); the learner is replicated, but
+    for ZeRO's moments and a tensor-parallel network's shards, which the
+    full state holds whole (`adam_state`)."""
 
     default_log_every = 10
     # The full state's keys that are this rank's own under a mesh (the rest,
@@ -80,16 +83,17 @@ class Trainer:
             raise ValueError(f"num_envs={num_envs} not divisible by data axis {shards}")
         return shards
 
-    def _shard(self, seed: int) -> None:
+    def _shard(self, seed: int, fold: bool = True) -> None:
         """Keeps this rank's slice of the env batch, drawn whole from the
-        shared seed, and moves its generator to the rank's stream
-        (`parallel.dp.fold_in`)."""
+        shared seed, and with `fold` moves its generator to its data index's
+        stream (`parallel.dp.fold_in`)."""
         if isinstance(self.env, GymEnv):
             raise ValueError("a data mesh shards the device envs; gym: envs step on the host "
                              "as one batch")
         mesh = self.mesh
         self.local_envs = self.num_envs // data_axis_size(mesh)
-        self.generator = dp.fold_in(self.generator, seed, mesh.rank)
+        if fold:
+            self.generator = dp.fold_in(self.generator, seed, mesh.index[DATA_AXIS])
         self.env_state, self.obs, self.ep_ret = dp.shard_env_batch(
             mesh, (self.env_state, self.obs, self.ep_ret))
 
@@ -182,13 +186,32 @@ class Trainer:
         return logs
 
 
-def adam_state(opt: AdamState) -> dict:
-    return {"count": opt.count, "mu": dict(opt.mu), "nu": dict(opt.nu)}
+def adam_state(opt: AdamState | zero.ZeroAdamState, mesh: Mesh | None = None,
+               sharding: TPSharding | None = None) -> dict:
+    """An Adam state in the one-device layout, {count, mu, nu} with the
+    moments by parameter name: a ZeRO state's chunks gathered over the data
+    ranks, a sharded network's moments over the model ranks. Collective
+    under a mesh: every rank calls it."""
+    if isinstance(opt, zero.ZeroAdamState):
+        mu, nu = zero.gather_moments(opt, mesh)
+    else:
+        mu, nu = dict(opt.mu), dict(opt.nu)
+    if sharding is not None:
+        mu, nu = sharding.gather(mu), sharding.gather(nu)
+    return {"count": opt.count, "mu": mu, "nu": nu}
 
 
-def load_adam_state(opt: AdamState, fs: dict) -> None:
-    opt.count = int(fs["count"])
-    opt.mu, opt.nu = dict(fs["mu"]), dict(fs["nu"])
+def load_adam_state(opt: AdamState | zero.ZeroAdamState, fs: dict, mesh: Mesh | None = None,
+                    sharding: TPSharding | None = None) -> None:
+    """Inverse of `adam_state`: this rank's chunk or shard of `fs`."""
+    mu, nu = dict(fs["mu"]), dict(fs["nu"])
+    if sharding is not None:
+        mu, nu = sharding.shard(mu), sharding.shard(nu)
+    if isinstance(opt, zero.ZeroAdamState):
+        zero.load_moments(opt, mesh, fs["count"], mu, nu)
+    else:
+        opt.count = int(fs["count"])
+        opt.mu, opt.nu = mu, nu
 
 
 def zfilter_state(zf: ZFilterState) -> dict:

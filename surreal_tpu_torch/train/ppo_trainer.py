@@ -3,10 +3,13 @@ batch from a name (a "gym:" name gets `num_envs` as its default env kwarg)
 or takes a pre-built env, pixel-wrapped or not, and the network,
 feed-forward or recurrent, in its compute dtype, then runs train steps,
 fused or overlapped (`overlap`: the update of iteration k consumes the
-trajectory of iteration k - 1), on one device or, given a data `mesh`
-(`parallel.mesh`), on this rank's share of the envs with the sharded steps
-of `parallel.dp` (the reference's tensor-parallel and time-sharded paths
-are A15b)."""
+trajectory of iteration k - 1), on one device or, given a `mesh`
+(`parallel.mesh`), on this rank's share of the envs: with the sharded
+steps of `parallel.dp` over the data axis, the GAE scan split over the
+time axis (`cfg.time_shards`) and ZeRO's moments over the data axis
+(`cfg.zero_shards`), each set from the mesh as the reference's trainer
+sets them; or, with a model axis, with the network sharded over it and the
+one-device step's semantics (`parallel.tp`)."""
 
 from __future__ import annotations
 
@@ -23,8 +26,8 @@ from surreal_tpu_torch.models.actor_critic import PPOActorCritic
 from surreal_tpu_torch.models.blocks import resolve_dtype
 from surreal_tpu_torch.models.distributions import DiagGauss
 from surreal_tpu_torch.models.z_filter import ZFilterState
-from surreal_tpu_torch.parallel import dp
-from surreal_tpu_torch.parallel.mesh import A15B, MODEL_AXIS, TIME_AXIS
+from surreal_tpu_torch.parallel import dp, tp
+from surreal_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, TIME_AXIS
 from surreal_tpu_torch.train.evaluator import evaluate_policy
 from surreal_tpu_torch.train.loop import (
     Trainer,
@@ -32,6 +35,19 @@ from surreal_tpu_torch.train.loop import (
     load_adam_state,
     zfilter_state,
 )
+
+
+def check_layout(cfg: ppo.PPOConfig, model: int, time: int, use_lstm: bool = False,
+                 overlap: bool = False) -> None:
+    """The reference trainer's refusals of a mesh's model and time axes, with
+    its messages (the CLI checks them before it starts the ranks)."""
+    if model > 1 and time > 1:
+        raise ValueError("mesh.model and mesh.time cannot both be > 1")
+    if model > 1 and (use_lstm or cfg.zero_optimizer or cfg.publish_every > 1 or overlap):
+        raise ValueError("mesh.model > 1 (GSPMD TP path) does not compose with "
+                         "use_lstm / zero_optimizer / publish_every / overlap yet")
+    if time > 1 and cfg.horizon % time != 0:
+        raise ValueError(f"horizon {cfg.horizon} not divisible by time axis {time}")
 
 
 class PPOTrainer(Trainer):
@@ -50,11 +66,15 @@ class PPOTrainer(Trainer):
         self._pending = None  # overlap: the trajectory awaiting its update
         cfg = cfg or ppo.PPOConfig()
         self.mesh = mesh
+        model_shards = time_shards = 1
+        if mesh is not None:
+            if cfg.zero_optimizer:  # ZeRO's moment chunks are sized up front
+                cfg = dataclasses.replace(cfg, zero_shards=mesh.shape[DATA_AXIS])
+            model_shards, time_shards = mesh.shape[MODEL_AXIS], mesh.shape[TIME_AXIS]
         self._check_mesh(num_envs, debug_checks)
-        if mesh is not None and (mesh.shape.get(MODEL_AXIS, 1) > 1
-                                 or mesh.shape.get(TIME_AXIS, 1) > 1 or cfg.zero_optimizer):
-            raise NotImplementedError(f"mesh.model, mesh.time > 1 and zero_optimizer on a "
-                                      f"mesh: {A15B}")
+        check_layout(cfg, model_shards, time_shards, use_lstm, overlap)
+        if time_shards > 1:
+            cfg = dataclasses.replace(cfg, time_shards=time_shards)
         self.device = self._resolve_device(device)
         if isinstance(env_name, str):
             env_kwargs = dict(env_kwargs or {})
@@ -86,11 +106,16 @@ class PPOTrainer(Trainer):
         self.obs = self._flatten(ts0.obs)
         self.local_envs = num_envs
         self.carry = net.initial_carry((num_envs,))  # None without an LSTM
+        self.sharding = tp.shard_module(net, mesh) if model_shards > 1 else None
         self.state = ppo.init_state(self.cfg, net, obs_dim)
         self.ep_ret = torch.zeros(num_envs, dtype=torch.float32, device=self.device)
         self.global_iter = 0
         self.debug_checks = debug_checks
-        if mesh is not None:
+        if self.sharding is not None:
+            # the one-device step's semantics: no fold, whole-batch draws
+            self._shard(seed, fold=False)
+            self._step = tp.make_tp_ppo_step(self.cfg, self.env, self._flatten, mesh)
+        elif mesh is not None:
             self._shard(seed)
             if overlap:
                 self._step, self._prime = dp.make_sharded_ppo_overlap_step(
@@ -98,7 +123,7 @@ class PPOTrainer(Trainer):
             else:
                 maker = dp.make_sharded_ppo_lstm_step if use_lstm else dp.make_sharded_ppo_step
                 self._step = maker(self.cfg, self.env, self._flatten, mesh)
-            self.state = dp.place_by_spec(mesh, self.state, dp.train_state_spec(self.state))
+            self.state = dp.replicate(mesh, self.state)
             if use_lstm:
                 self.carry = dp.shard_env_batch(mesh, self.carry)
         else:  # one device: the algorithm's own steps
@@ -116,11 +141,15 @@ class PPOTrainer(Trainer):
     # stacks), the LSTM carry, the generator and the counters all survive.
     # The overlapped step's pending trajectory does not, as in the
     # reference: a restored trainer primes again, so a resumed overlapped
-    # run is not the uninterrupted one ----
+    # run is not the uninterrupted one. The learner is held whole: ZeRO's
+    # moments and a sharded network gathered (collective under a mesh) ----
     @property
     def full_state(self) -> dict:
         s = self.state
-        fs = {"net": s.net.state_dict(), "opt": adam_state(s.opt_state),
+        net = s.net.state_dict()
+        if self.sharding is not None:
+            net = self.sharding.gather(net)
+        fs = {"net": net, "opt": adam_state(s.opt_state, self.mesh, self.sharding),
               "zfilter": zfilter_state(s.zfilter), "kl_beta": s.kl_beta,
               "lr_scale": s.lr_scale, "update_step": s.update_step, **self._run_state()}
         if s.psync is not None:
@@ -131,8 +160,9 @@ class PPOTrainer(Trainer):
 
     def load_full_state(self, fs: dict) -> None:
         s = self.state
-        s.net.load_state_dict(fs["net"])
-        load_adam_state(s.opt_state, fs["opt"])
+        s.net.load_state_dict(fs["net"] if self.sharding is None
+                              else self.sharding.shard(fs["net"]))
+        load_adam_state(s.opt_state, fs["opt"], self.mesh, self.sharding)
         s.zfilter = ZFilterState(**fs["zfilter"])
         s.kl_beta, s.lr_scale = fs["kl_beta"], fs["lr_scale"]
         s.update_step = int(fs["update_step"])

@@ -2,8 +2,8 @@
 held to the expectations of the reference's tests/test_checkpoint_cli.py
 on its tiny cartpole-balance run (8 envs, horizon 8, (16, 16), one
 minibatch): config.json, checkpoints at the reference's steps, kill and
-resume, eval from the latest and the best checkpoint, `envs`, the knobs
-that are not ported yet, one DDPG run, and a pixel run with its eval
+resume, eval from the latest and the best checkpoint, `envs`, the mesh
+layouts the reference refuses, one DDPG run, and a pixel run with its eval
 video.
 
 A CPU cartpole control step takes ~13 ms, so a 1,000-step evaluation
@@ -133,16 +133,20 @@ def test_envs_lists_the_registry(capsys):
     assert len(available_envs()) == 26
 
 
-# The data axis and the multihost flags are ported (A15a: tests/test_torch_dp_cli.py);
-# each knob below is refused beside an axis that is not (A15b).
-@pytest.mark.parametrize("flags,item", [
-    (["--session.mesh.data", "2", "--session.mesh.time", "2"], "A15b"),
-    (["--session.mesh.model", "2"], "A15b"),
-    (["--session.multihost.num_processes", "2", "--session.mesh.model", "2"], "A15b"),
+# Every mesh axis and ZeRO run through the CLI (tests/test_torch_dp_cli.py,
+# test_torch_mesh_cli.py); the layouts below are the ones the reference's
+# trainers refuse, with their messages, and the CLI refuses them before it
+# starts a rank.
+@pytest.mark.parametrize("algo,flags,item", [
+    ("ppo", ["--session.mesh.model", "2", "--session.mesh.time", "2"],
+     "mesh.model and mesh.time cannot both be > 1"),
+    ("ppo", ["--session.mesh.model", "2", "--learner.use_lstm", "true"],
+     "does not compose with use_lstm"),
+    ("ddpg", ["--session.mesh.model", "2"], "PPO-only feature"),
 ], ids=lambda x: x if isinstance(x, str) else "_".join(x))
-def test_unported_knobs_raise_naming_their_item(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _train(tmp_path, "n", 64, *flags)
+def test_unported_knobs_raise_naming_their_item(tmp_path, algo, flags, item):
+    with pytest.raises(ValueError, match=item):
+        _train(tmp_path, "n", 64, *flags, algo=algo)
     assert not (tmp_path / "n").exists()  # raised before anything was written
 
 

@@ -69,8 +69,13 @@ def test_config_keeps_reference_fields_and_defaults():
     ref = {f.name: f.default for f in dataclasses.fields(jddpg.DDPGConfig)}
     port = {f.name: f.default for f in dataclasses.fields(tddpg.DDPGConfig)}
     assert ref == port
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tddpg.DDPGConfig(zero_optimizer=True)
+    # zero_optimizer with one shard is plain Adam, as the reference's gate
+    # `zero_optimizer and zero_shards > 1` (trained: tests/test_torch_zero.py)
+    cfg = tddpg.DDPGConfig(zero_optimizer=True)
+    state = tddpg.init_state(cfg, tnets.DDPGActor(OBS_DIM, ACT_DIM, (8,)),
+                             tnets.DDPGCritic(OBS_DIM, ACT_DIM, (8,)), OBS_DIM)
+    assert isinstance(state.actor_opt, tddpg.AdamState)
+    assert isinstance(state.critic_opt, tddpg.AdamState)
     assert tddpg.DDPGConfig(shared_encoder=True, aug_shift=4).aug_shift == 4  # pixel knobs
     np.testing.assert_array_equal(jddpg.noise_ladder(jddpg.DDPGConfig(), 16),
                                   tddpg.noise_ladder(tddpg.DDPGConfig(), 16))

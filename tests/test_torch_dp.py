@@ -58,8 +58,9 @@ ATOL_METRIC = {"ppo": 1e-7, "lstm": 1e-7, "overlap": 1e-6}
 KL_TARGET = {"ppo": 1.4e-4, "lstm": 4.06e-5, "overlap": 1.266e-4}
 
 
-def ref_mesh():
-    return Mesh(np.asarray(jax.devices()[:S]).reshape(S, 1, 1), ("data", "model", "time"))
+def ref_mesh(time=1):
+    return Mesh(np.asarray(jax.devices()[:S * time]).reshape(S, 1, time),
+                ("data", "model", "time"))
 
 
 def shard(tree, r):
@@ -79,12 +80,19 @@ def metrics_np(m):
     return {k: float(v) for k, v in jax.device_get(m).items()}
 
 
-def build_case(mode, tmp_path_factory):
+def build_case(mode, tmp_path_factory, zero=False, time=1):
     """The reference's sharded PPO steps, and the port's ranks on the same
     inputs and per-shard draws; `mode` is "ppo", "lstm" or "overlap"
-    (tests/test_torch_dp_overlap.py)."""
+    (tests/test_torch_dp_overlap.py). With `zero`, both sides' Adam is
+    ZeRO's (tests/test_torch_zero.py), and the ranks run the replicated
+    Adam after it on the same inputs (their "twin" learner). With `time`
+    > 1, both meshes are S x 1 x time and the GAE scan is split over time
+    (tests/test_torch_tshard.py): the port's ranks are S·time, each with
+    its data index's draws."""
     lstm = mode == "lstm"
-    cfg_kw = dict(horizon=T, epochs=2, num_minibatches=2, kl_target=KL_TARGET[mode])
+    cfg_kw = dict(horizon=T, epochs=2, num_minibatches=2, kl_target=KL_TARGET[mode],
+                  **(dict(zero_optimizer=True, zero_shards=S) if zero else {}),
+                  **(dict(time_shards=time) if time > 1 else {}))
     cfg = jppo.PPOConfig(**cfg_kw)
     env = jmake_env("cheetah-run")
     reset_fn, step_fn = jbase.vectorize(env)
@@ -103,7 +111,8 @@ def build_case(mode, tmp_path_factory):
         params = net.init(jax.random.PRNGKey(0), obs[:1])
     state = jppo.init_state(cfg, params, 17)
     ep_ret = jnp.zeros((B,), jnp.float32)
-    job = {"kind": "ppo", "mode": mode, "cfg": cfg_kw, "hidden": HIDDEN,
+    job = {"kind": "ppo", "mode": mode, "cfg": cfg_kw, "hidden": HIDDEN, "twin": zero,
+           "shape": (S, 1, time),
            "lstm": LSTM if lstm else 0,
            "params": params_from_flax(jax.device_get(params)),
            "env": [env_tensors(shard(env_state, r)) for r in range(S)],
@@ -112,19 +121,24 @@ def build_case(mode, tmp_path_factory):
            else None,
            "noise": [[] for _ in range(S)], "perms": [[] for _ in range(S)],
            "rows": [[] for _ in range(S)]}
-    mesh = ref_mesh()
+    mesh = ref_mesh(time)
+    spec = jdp.train_state_spec(state)
+    state = jdp.place_by_spec(mesh, state, spec)
     n_perm = PER if lstm else T * PER
     if lstm:
         roll = fast_jit(lambda s, es, o, c, r, k: jlstm.rollout(cfg, net.apply, step_fn, flat,
                                                                 s, es, o, c, r, k))
-        step = jdp.make_sharded_ppo_lstm_step(cfg, net.apply, step_fn, flat, mesh)
+        step = jdp.make_sharded_ppo_lstm_step(cfg, net.apply, step_fn, flat, mesh,
+                                              state_spec=spec)
     else:
         roll = fast_jit(lambda s, es, o, r, k: jppo.rollout(cfg, net.apply, step_fn, flat,
                                                             s, es, o, r, k))
         if mode == "overlap":
-            step, prime = jdp.make_sharded_ppo_overlap_step(cfg, net.apply, step_fn, flat, mesh)
+            step, prime = jdp.make_sharded_ppo_overlap_step(cfg, net.apply, step_fn, flat, mesh,
+                                                            state_spec=spec)
         else:
-            step = jdp.make_sharded_ppo_step(cfg, net.apply, step_fn, flat, mesh)
+            step = jdp.make_sharded_ppo_step(cfg, net.apply, step_fn, flat, mesh,
+                                             state_spec=spec)
 
     def shard_rollout(r, key):
         # on the host: the compiled rollout takes uncommitted inputs
@@ -160,7 +174,7 @@ def build_case(mode, tmp_path_factory):
         lr_scales.append(float(state.lr_scale))
     ref = {"state": jax.device_get(state), "metrics": metrics, "lr_scales": lr_scales,
            "obs": np.asarray(obs)}
-    return mode, ref, run_ranks(tmp_path_factory.mktemp(f"dp_{mode}"), job)
+    return mode, ref, run_ranks(tmp_path_factory.mktemp(f"dp_{mode}"), job, world=S * time)
 
 
 @pytest.fixture(scope="module", params=["ppo", "lstm"])

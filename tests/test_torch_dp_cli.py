@@ -108,7 +108,7 @@ def test_data_two_resume_and_eval(tmp_path, capfd):
     straight = _checkpoint(exp, 256)
     assert set(straight) == {"state.pt", "rank0.pt", "rank1.pt"}
     with open(exp / "checkpoints" / "latest" / "256" / "mesh.json") as f:
-        assert json.load(f) == {"data": 2}
+        assert json.load(f) == {"data": 2, "model": 1, "time": 1, "zero": False}
     assert "generator" in straight["rank1.pt"] and "net" in straight["state.pt"]
     assert not torch.equal(straight["rank0.pt"]["obs"], straight["rank1.pt"]["obs"])
 

@@ -49,7 +49,16 @@ ATOL_PARAM, RTOL_METRIC, RTOL_ZF, TOL_TRAJ = 1e-5, 1e-4, 1e-5, 1e-4
 
 @pytest.fixture(scope="module")
 def ddpg_case(tmp_path_factory):
-    cfg = jddpg.DDPGConfig(**CFG)
+    return build_ddpg_case(tmp_path_factory)
+
+
+def build_ddpg_case(tmp_path_factory, zero=False):
+    """The reference's sharded DDPG steps and the port's ranks on the same
+    inputs and per-shard draws. With `zero`, both sides' Adam is ZeRO's
+    (tests/test_torch_zero.py), and the ranks run the replicated Adam after
+    it on the same inputs (their "twin" networks)."""
+    cfg_kw = {**CFG, **(dict(zero_optimizer=True, zero_shards=S) if zero else {})}
+    cfg = jddpg.DDPGConfig(**cfg_kw)
     env = jmake_env("cheetah-run")
     reset_fn, step_fn = jbase.vectorize(env)
     flat = jbase.flatten_obs
@@ -64,7 +73,8 @@ def ddpg_case(tmp_path_factory):
     replay = jddpg.init_replay(cfg, B, 17, 6)
     sigma = jnp.asarray(jddpg.noise_ladder(cfg, B))
     ou, ep_ret = jnp.zeros((B, 6)), jnp.zeros((B,))
-    job = {"kind": "ddpg", "cfg": CFG, "a_hid": A_HID, "c_hid": C_HID, "num_envs": B,
+    job = {"kind": "ddpg", "cfg": cfg_kw, "a_hid": A_HID, "c_hid": C_HID, "num_envs": B,
+           "twin": zero,
            "ap": params_from_flax(jax.device_get(ap)), "cp": params_from_flax(jax.device_get(cp)),
            "env": [env_tensors(shard(env_state, r)) for r in range(S)],
            "obs": [to_torch(shard(obs, r)) for r in range(S)],
@@ -72,8 +82,10 @@ def ddpg_case(tmp_path_factory):
     mesh = ref_mesh()
     roll = fast_jit(lambda s, es, o, u, sg, r, k, rp: jddpg.rollout(
         cfg, actor.apply, step_fn, flat, s, es, o, u, sg, r, k, rp))
-    step = jdp.make_sharded_ddpg_step(cfg, actor.apply, critic.apply, step_fn, flat, mesh)(
-        replay)
+    spec = jdp.train_state_spec(state)
+    state = jdp.place_by_spec(mesh, state, spec)
+    step = jdp.make_sharded_ddpg_step(cfg, actor.apply, critic.apply, step_fn, flat, mesh,
+                                      state_spec=spec)(replay)
     replay = JReplay(data=jax.tree.map(
         lambda x: jax.device_put(x, NamedSharding(mesh, P(None, "data"))), replay.data),
         total=replay.total)
@@ -224,22 +236,23 @@ def test_ring_depth_and_noise_ladder_come_from_the_global_batch():
     assert t.local_envs == 4 and t.steps_per_iteration == one.steps_per_iteration
 
 
+# the reference trainers' own refusals, with their messages
 @pytest.mark.parametrize("case,err,match", [
     ("indivisible", ValueError, "not divisible by data axis 2"),
-    ("model", NotImplementedError, "A15b"),
-    ("zero", NotImplementedError, "A15b"),
+    ("model_and_time", ValueError, "mesh.model and mesh.time cannot both be > 1"),
+    ("model_with_zero", ValueError, "does not compose with use_lstm / zero_optimizer"),
     ("debug", ValueError, "debug_checks is single-device only"),
     ("ddpg_time", ValueError, "supports the data axis only"),
     ("gym", ValueError, "gym"),
 ])
 def test_mesh_refusals(case, err, match):
-    shape = {"data": 2, "model": 2 if case == "model" else 1,
-             "time": 2 if case == "ddpg_time" else 1}
+    shape = {"data": 2, "model": 2 if case.startswith("model") else 1,
+             "time": 2 if case in ("ddpg_time", "model_and_time") else 1}
     mesh = pmesh.Mesh(shape=shape, rank=0, world_size=2, device=torch.device("cpu"), group=None)
     with pytest.raises(err, match=match):
         if case == "indivisible":
             _trainer("ppo", mesh, num_envs=7)
-        elif case == "zero":
+        elif case == "model_with_zero":
             PPOTrainer("cheetah-run", tppo.PPOConfig(zero_optimizer=True), num_envs=8,
                        device="cpu", mesh=mesh)
         elif case == "debug":

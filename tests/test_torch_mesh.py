@@ -128,12 +128,65 @@ def test_one_rank_mesh_without_a_group_is_the_identity():
     assert pmesh.distributed_init() is None  # neither coordinator nor processes: a no-op
 
 
+# a mesh must cover the ranks exactly, as the reference's make_mesh asserts
 @pytest.mark.parametrize("kw,match", [
-    ({"model": 2}, "A15b"), ({"time": 2}, "A15b"), ({"data": 2}, "2x1x1 != 1 ranks")])
+    ({"model": 2}, "1 ranks do not divide into model 2 x time 1"),
+    ({"time": 2}, "1 ranks do not divide into model 1 x time 2"),
+    ({"data": 2}, "2x1x1 != 1 ranks")], ids=["model", "time", "data"])
 def test_make_mesh_refuses(kw, match):
-    err = NotImplementedError if "A15b" in match else AssertionError
-    with pytest.raises(err, match=match):
+    with pytest.raises(AssertionError, match=match):
         pmesh.make_mesh(device="cpu", **kw)
+
+
+# The reference's layout: devices.reshape(data, model, time), so rank =
+# d·model·time + m·time + t; an axis's group holds the ranks that share the
+# other two indices.
+LAYOUTS = {
+    (2, 1, 2): {"data": [[0, 2], [1, 3]], "model": [[0], [1], [2], [3]],
+                "time": [[0, 1], [2, 3]]},
+    (2, 2, 1): {"data": [[0, 2], [1, 3]], "model": [[0, 1], [2, 3]],
+                "time": [[0], [1], [2], [3]]},
+    (1, 2, 1): {"data": [[0], [1]], "model": [[0, 1]], "time": [[0], [1]]},
+}
+
+
+@pytest.mark.parametrize("shape", list(LAYOUTS), ids=lambda s: "x".join(map(str, s)))
+def test_rank_layout_and_axis_groups(shape):
+    sizes = dict(zip(pmesh.AXES, shape))
+    ref = np.arange(np.prod(shape)).reshape(shape)  # the reference's device grid
+    for ax in pmesh.AXES:
+        assert pmesh.axis_members(sizes, ax) == LAYOUTS[shape][ax]
+    for rank in range(ref.size):
+        index = pmesh.Mesh(shape=sizes, rank=rank, world_size=ref.size,
+                           device=torch.device("cpu"), group=None).index
+        assert ref[index["data"], index["model"], index["time"]] == rank
+
+
+@pytest.fixture(scope="module")
+def axes(tmp_path_factory):
+    rs = np.random.RandomState(2)
+    shapes = [(2, 1, 2), (2, 2, 1)]
+    job = {"kind": "axes", "shapes": shapes,
+           "x": [torch.tensor(rs.randn(3).astype(np.float32)) for _ in range(4)]}
+    return job, run_ranks(tmp_path_factory.mktemp("axes"), job, world=4)
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 2), (2, 2, 1)], ids=["2x1x2", "2x2x1"])
+def test_collectives_over_each_axis_on_4_ranks(axes, shape):
+    job, out = axes
+    for rank, o in enumerate(out):
+        got = o[shape]
+        index = got["index"]
+        assert rank == index["data"] * shape[1] * shape[2] + index["model"] * shape[2] \
+            + index["time"]
+        for ax in pmesh.AXES:
+            members = next(g for g in LAYOUTS[shape][ax] if rank in g)
+            by = got["by_axis"][ax]
+            assert by["members"] == members  # the group, in its axis order
+            xs = [job["x"][r] for r in members]
+            assert torch.equal(by["psum"], sum(xs[1:], xs[0]))
+            assert torch.equal(by["pmean"], sum(xs[1:], xs[0]) / len(xs))
+            assert torch.equal(by["gather"], torch.stack(xs))
 
 
 def test_distributed_init_needs_all_three():

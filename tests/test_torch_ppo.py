@@ -170,9 +170,12 @@ def test_config_keeps_reference_fields_and_defaults():
     ref = {f.name: f.default for f in dataclasses.fields(jppo.PPOConfig)}
     port = {f.name: f.default for f in dataclasses.fields(tppo.PPOConfig)}
     assert ref == port
-    for refused in ({"time_shards": 2}, {"zero_shards": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tppo.PPOConfig(**refused)
+    # the mesh knobs are accepted as the reference accepts them (the
+    # trainers set them from the mesh; tests/test_torch_zero.py and
+    # test_torch_tshard.py run them)
+    for kw in ({"time_shards": 2}, {"zero_shards": 2, "zero_optimizer": True}):
+        assert dataclasses.asdict(tppo.PPOConfig(**kw)) == dataclasses.asdict(
+            jppo.PPOConfig(**kw))
     assert tppo.PPOConfig(publish_every=2).publish_every == 2
 
 
@@ -245,8 +248,8 @@ def test_trainer_evaluate_and_refused_options():
 
     model_axis = Mesh(shape={"data": 1, "model": 2, "time": 1}, rank=0, world_size=2,
                       device=torch.device("cpu"), group=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):  # A15b
-        PPOTrainer("cheetah-run", device="cpu", mesh=model_axis)
+    with pytest.raises(ValueError, match="does not compose with use_lstm"):  # the reference's
+        PPOTrainer("cheetah-run", device="cpu", mesh=model_axis, overlap=True)
 
 
 def test_publish_every_matches_reference():
