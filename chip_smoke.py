@@ -226,14 +226,27 @@ make a data 2, a time 2 and a model 2 mesh in turn over their group:
      and 39 (five chains of commands) go at once, each command's 2 ranks
      sharing the card, after phase 27: no profile runs beside them. Each
      phase's wall time is printed.
-Phases 6 to 9, 11, 12, 14 to 24, 26 to 39 print one JSON object each
+ 40. a checkpoint resumed under another layout, as the reference's orbax
+     restore resumes it, as soon as the runs of 34 and 39 that write its
+     checkpoints are done (beside their other runs): phase 34's data-2
+     checkpoint through the CLI in this process on one device for one
+     iteration (the learner it loaded bit for bit state.pt, its env batch
+     the two ranks' files joined, its generator rank 0's; its checkpoint
+     after the iteration bit for bit a one-device trainer's given that
+     state in this process; the same check with the ranks' rows swapped, a
+     planted fault, must fail), and at once, in 2 gloo ranks sharing the
+     card, phase 39's model-2 checkpoint under `--session.mesh.data 2`
+     (the CLI's session in each rank: its rows of the batch, the learner,
+     the generator by checkpoint.py's rule); 32 + 32 loss launches each
+     (a rank) from the counters, and the seconds.
+Phases 6 to 9, 11, 12, 14 to 24, 26 to 40 print one JSON object each
 (three in phase 26), phases 10 and 13 one per task. The whole run's time
 follows; the line before the card's is a JSON object with one entry per
 kernel (GAE, on no trainer path since the reference's default is the XLA
 scan, is still held by phases 3, 4 and 25); the last line is {"ok": true,
 "device": {...}}.
 
-With --dp, phases 1, 2 and 28-39 run alone; with --axes, 1, 2 and 35-39.
+With --dp, phases 1, 2 and 28-40 run alone; with --axes, 1, 2 and 35-40.
 With --loss-timing, only phase 1 and the autograd timing of phase 3 run,
 on the surreal_tpu_torch package under ROOT (default: this checkout), so
 two versions of the package can be timed in turns in one run on one card.
@@ -3577,12 +3590,15 @@ def dp_rank_axes(mesh) -> dict:
     return out
 
 
-DP_RANK_PHASES = {"shared": dp_rank_shared, "nccl": dp_rank_nccl, "axes": dp_rank_axes}
+DP_RANK_PHASES = {"shared": dp_rank_shared, "nccl": dp_rank_nccl, "axes": dp_rank_axes,
+                  # phase 40's, defined with it below
+                  "resume": lambda mesh, job: resume_rank(mesh, job)}
 
 
 def dp_rank(local: int, folder: str, world: int, phases: str) -> None:
     """Rank `local` of `world`: joins the group at folder's file store, runs
-    DP_RANK_PHASES[phases] and writes its numbers to folder/rank<r>.json."""
+    DP_RANK_PHASES[phases] (given folder/job.json where there is one) and
+    writes its numbers to folder/rank<r>.json."""
     import torch.distributed as dist
 
     from surreal_tpu_torch.parallel import mesh as pmesh
@@ -3591,19 +3607,28 @@ def dp_rank(local: int, folder: str, world: int, phases: str) -> None:
                            device="cuda", timeout_s=DP_TIMEOUT_S)
     try:
         mesh = pmesh.make_mesh(world, device="cuda")
-        out = DP_RANK_PHASES[phases](mesh)
+        job = os.path.join(folder, "job.json")
+        if os.path.exists(job):
+            with open(job) as f:
+                out = DP_RANK_PHASES[phases](mesh, json.load(f))
+        else:
+            out = DP_RANK_PHASES[phases](mesh)
         with open(os.path.join(folder, f"rank{mesh.rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
         dist.destroy_process_group()
 
 
-def run_ranks(phases: str, world: int) -> list[dict]:
-    """Spawns the ranks and returns their numbers; fails if any failed."""
+def run_ranks(phases: str, world: int, job: dict | None = None) -> list[dict]:
+    """Spawns the ranks (handing them `job`) and returns their numbers;
+    fails if any failed."""
     from surreal_tpu_torch.parallel.mesh import spawn
 
     folder = tempfile.mkdtemp(prefix=f"chip_smoke_dp_{phases}_")
     try:
+        if job is not None:
+            with open(os.path.join(folder, "job.json"), "w") as f:
+                json.dump(job, f)
         spawn(dp_rank, world, (folder, world, phases), timeout_s=DP_TIMEOUT_S)
         out = []
         for r in range(world):
@@ -3779,16 +3804,18 @@ def cli_train(root: str, name: str, flags: list, iters: int) -> tuple:
 
 
 def cli_chains(root: str, chains: dict) -> dict:
-    """Runs each chain of CLI runs (a list of (name, flags, iterations)) in
-    order, the chains at once; {chain: its runs' results} (`check_runs`
-    checks them)."""
+    """Starts each chain of CLI runs (a list of (name, flags, iterations)),
+    its runs in order, the chains at once; {chain: a future of its runs'
+    results} (`check_runs` checks them)."""
     from concurrent.futures import ThreadPoolExecutor
 
     def run(chain):
         return [cli_train(root, *r) for r in chain]
 
-    with ThreadPoolExecutor(len(chains)) as ex:
-        return dict(zip(chains, ex.map(run, chains.values())))
+    ex = ThreadPoolExecutor(len(chains))
+    pending = {name: ex.submit(run, chain) for name, chain in chains.items()}
+    ex.shutdown(wait=False)
+    return pending
 
 
 def check_runs(chains: dict) -> None:
@@ -4071,35 +4098,281 @@ def phase_cli_axes(root: str, chains: dict) -> dict:
     return out
 
 
+# Phase 40: phase 34's `straight` checkpoint (data 2) and phase 39's `model2`
+# one (data 1 x model 2), each resumed for one iteration under another layout.
+RESUME_STEP = 2 * CARTPOLE_ITER
+
+
+def writer_state(folder: str, order=None) -> dict:
+    """The one-device full state of a mesh's step directory, on the host:
+    state.pt's learner, the env batch of each data index's model-0, time-0
+    rank joined along the envs in data-index order (`order`, a permutation
+    of the data indices, plants a fault), data index 0's generator."""
+    with open(os.path.join(folder, "mesh.json")) as f:
+        layout = json.load(f)
+    members = layout["model"] * layout["time"]
+    parts = [torch.load(os.path.join(folder, f"rank{d * members}.pt"), weights_only=True,
+                        map_location="cpu") for d in (order or range(layout["data"]))]
+
+    def join(xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.cat(xs)
+        if isinstance(xs[0], dict):
+            return {k: join([x[k] for x in xs]) for k in xs[0]}
+        return type(xs[0])(join([x[i] for x in xs]) for i in range(len(xs[0])))
+
+    state = torch.load(os.path.join(folder, "state.pt"), weights_only=True, map_location="cpu")
+    state.update({k: join([p[k] for p in parts]) for k in parts[0] if k != "generator"})
+    state["generator"] = parts[0]["generator"]
+    return state
+
+
+def rows_of(state: dict, keys, index: int, shards: int) -> dict:
+    """Data index `index`'s rows of the env batch's `keys` (all dim 0: PPO)."""
+    def cut(x):
+        if isinstance(x, torch.Tensor):
+            b = x.shape[0] // shards
+            return x[index * b:(index + 1) * b]
+        if isinstance(x, dict):
+            return {k: cut(v) for k, v in x.items()}
+        return x
+
+    return {k: cut(state[k]) for k in keys if k in state and k != "generator"}
+
+
+@contextlib.contextmanager
+def loads_recorded():
+    """Within it, every PPOTrainer.load_full_state appends the trainer's
+    full state just after the load, on the host, to the list it yields."""
+    from surreal_tpu_torch.train import PPOTrainer
+
+    orig, seen = PPOTrainer.load_full_state, []
+
+    def load(self, fs):
+        orig(self, fs)
+        seen.append(moved(self.full_state))
+
+    PPOTrainer.load_full_state = load
+    try:
+        yield seen
+    finally:
+        PPOTrainer.load_full_state = orig
+
+
+def moved(tree, device="cpu"):
+    """A copy of a tree of tensors on `device`."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device).clone()
+    if isinstance(tree, dict):
+        return {k: moved(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(moved(v, device) for v in tree)
+    return tree
+
+
+def max_abs_diff(a: dict, b: dict, paths: list[str]) -> float:
+    """The largest difference of two full states' floating leaves at `paths`."""
+    la, lb = dict(state_leaves(a)), dict(state_leaves(b))
+    return max((float((la[p].double() - lb[p].double()).abs().max()) for p in paths
+                if isinstance(la.get(p), torch.Tensor) and la[p].is_floating_point()),
+               default=0.0)
+
+
+def split_state(fs: dict, rank_keys) -> tuple[dict, dict]:
+    """(the learner, the env batch and generator) of a full state."""
+    return ({k: v for k, v in fs.items() if k not in rank_keys},
+            {k: v for k, v in fs.items() if k in rank_keys})
+
+
+def resume_flags(root: str, name: str, *extra) -> list:
+    """The CLI's flags for one iteration past RESUME_STEP in experiment `name`."""
+    return [*CARTPOLE_FLAGS, *extra, "--session.total_env_steps",
+            str(RESUME_STEP + CARTPOLE_ITER), "--session.checkpoint_every_steps",
+            str(CARTPOLE_ITER), "--session.eval_every_steps", str(RESUME_STEP + CARTPOLE_ITER),
+            "--session.results_dir", root, "--session.experiment_name", name]
+
+
+def copy_checkpoint(root: str, source: str, name: str) -> str:
+    """Run `source`'s checkpoint at RESUME_STEP copied into experiment
+    `name`, whose only checkpoint it is; returns the source's folder."""
+    src = os.path.join(root, source, "checkpoints", "latest", str(RESUME_STEP))
+    shutil.copytree(src, os.path.join(root, name, "checkpoints", "latest", str(RESUME_STEP)))
+    return src
+
+
+def resume_rank(mesh, job: dict) -> dict:
+    """Phase 40's second resume in a rank of a data 2 mesh: the CLI's
+    session (`_train`, what `train ppo --session.mesh.data 2` runs in each
+    rank) resumes phase 39's model2 checkpoint for one iteration. What the
+    rank's trainer loaded against the writer's files: the learner against
+    state.pt, the env batch against its rows of the whole batch (the
+    writer's one data index: rank0.pt), the generator against the rule's
+    (rank 0: the writer's; rank 1: a fresh start's fold_in of the run's
+    seed and index 1); its loss launches and seconds."""
+    from surreal_tpu_torch.cli.configs import generate_configs
+    from surreal_tpu_torch.cli.main import _parse_overrides, _train
+    from surreal_tpu_torch.train import PPOTrainer
+
+    kernels = path_kernels()
+    learner, env_cfg, session = generate_configs("ppo", _parse_overrides(job["flags"]))
+    counts_zero(kernels)
+    t0 = time.perf_counter()
+    with loads_recorded() as seen, LogLines() as lines:
+        _train("ppo", learner, env_cfg, session, mesh.device.type, mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts(kernels)
+    whole = writer_state(job["source"])
+    d = mesh.index["data"]
+    got_learner, got_batch = split_state(seen[0], PPOTrainer.rank_keys)
+    want_learner = split_state(whole, PPOTrainer.rank_keys)[0]
+    if d == 0:
+        want_gen = whole["generator"]
+    else:
+        word = np.random.SeedSequence([int(session.seed), d]).generate_state(1, np.uint64)[0]
+        want_gen = torch.Generator(device=mesh.device).manual_seed(int(word)).get_state()
+    return {"rank": mesh.rank, "s": seconds, "launches": launches,
+            "resumed": [m for m in lines if m.startswith("resumed from checkpoint")],
+            "learner_unequal": unequal_leaves(got_learner, want_learner),
+            "batch_unequal": unequal_leaves(
+                {k: v for k, v in got_batch.items() if k != "generator"},
+                rows_of(whole, PPOTrainer.rank_keys, d, 2)),
+            "generator_as_ruled": bool(torch.equal(got_batch["generator"], want_gen.cpu()))}
+
+
+def phase_resume_layouts(root: str) -> dict:
+    """Phase 40: a checkpoint resumed under another layout, as the
+    reference's orbax restore resumes it. Resume 1: phase 34's `straight`
+    checkpoint (data 2) through the CLI in this process on one device (no
+    mesh), one iteration: the learner it loaded bit for bit state.pt, its
+    env batch the two ranks' files joined and its generator rank 0's, and
+    its checkpoint after the iteration bit for bit that of a one-device
+    trainer in this process given that whole state and run one iteration;
+    the same check with the two ranks' rows swapped (a planted fault) must
+    fail. Resume 2, in two ranks at once with resume 1: phase 39's model2
+    checkpoint under --session.mesh.data 2, one iteration (`resume_rank`).
+    Returns the loss kernels' launches on each resume (resume 2's summed
+    over its ranks)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from surreal_tpu_torch.cli.configs import generate_configs
+    from surreal_tpu_torch.cli.main import _build_trainer, _parse_overrides
+    from surreal_tpu_torch.train import PPOTrainer
+
+    keys = PPOTrainer.rank_keys
+    out = {"phase": "cli_resume_other_layout", "step": RESUME_STEP}
+    model2 = copy_checkpoint(root, "model2", "model2_as_data2")
+    ex = ThreadPoolExecutor(1)
+    ranks = ex.submit(run_ranks, "resume", DP_RANKS,
+                      {"source": model2, "flags": resume_flags(root, "model2_as_data2",
+                                                               "--session.mesh.data", "2")})
+    ex.shutdown(wait=False)
+
+    src = copy_checkpoint(root, "straight", "straight_on_one_device")
+    flags = resume_flags(root, "straight_on_one_device")
+    kernels = path_kernels()
+    counts_zero(kernels)
+    t0 = time.perf_counter()
+    with loads_recorded() as seen, LogLines() as lines:
+        cli_stdout(["train", "ppo", *flags, "--device", CLI_DEVICE])
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one_launches = counts(kernels)
+    whole = writer_state(src)
+    got_learner, got_batch = split_state(seen[0], keys)
+    want_learner, want_batch = split_state(whole, keys)
+    swapped = split_state(writer_state(src, order=(1, 0)), keys)[1]
+    fault = unequal_leaves(got_batch, swapped)
+    learner_cfg, env_cfg, session = generate_configs("ppo", _parse_overrides(flags))
+    twin = _build_trainer(learner_cfg, env_cfg, session, CLI_DEVICE)
+    twin.load_full_state(moved(whole, CLI_DEVICE))
+    twin.run(1)
+    folder = os.path.join(root, "straight_on_one_device", "checkpoints", "latest",
+                          str(RESUME_STEP + CARTPOLE_ITER))
+    files = sorted(os.listdir(folder))
+    after = torch.load(os.path.join(folder, "state.pt"), weights_only=True, map_location="cpu")
+    twin_state = moved(twin.full_state)
+    twin_unequal = unequal_leaves(after, twin_state)
+    out["one_device"] = {
+        "s": one_s, "launches": one_launches,
+        "resumed": [m for m in lines if m.startswith("resumed from checkpoint")],
+        "learner_unequal": unequal_leaves(got_learner, want_learner),
+        "batch_unequal": unequal_leaves(got_batch, want_batch),
+        "files_after": files, "unequal_to_twin": twin_unequal,
+        "max_abs_to_twin": max_abs_diff(after, twin_state, twin_unequal),
+        "planted_fault_rows_swapped": {
+            "unequal": fault, "obs_max_abs": float(
+                (got_batch["obs"] - swapped["obs"]).abs().max())}}
+    del twin
+    rank_out = ranks.result()
+    out["data2_from_model2"] = rank_out
+    print(json.dumps(out))
+    one = out["one_device"]
+    want = {"gae": 0, "ppo_loss_fwd": 32, "ppo_loss_bwd": 32}
+    if one["launches"] != want:
+        fail(f"the one-device resume launched {one['launches']}, not {want}")
+    if not (one["resumed"] and one["resumed"][0].startswith(
+            f"resumed from checkpoint @ {RESUME_STEP} env steps (iter 2), written by a data "
+            "mesh of 2")):
+        fail(f"the one-device run did not resume the data-2 checkpoint: {one['resumed']}")
+    if one["learner_unequal"] or one["batch_unequal"]:
+        fail(f"the one-device resume loaded other values than the data-2 checkpoint's: "
+             f"{one['learner_unequal']} {one['batch_unequal']}")
+    if not one["planted_fault_rows_swapped"]["unequal"]:
+        fail("the check of the loaded env batch missed the planted fault (rows swapped)")
+    if files != ["state.pt"]:
+        fail(f"the one-device checkpoint after the resume holds {files}")
+    if twin_unequal:
+        fail(f"the resumed run's checkpoint differs from the one-device twin's: {twin_unequal}")
+    for r in rank_out:
+        if r["launches"] != want:
+            fail(f"rank {r['rank']} of the data-2 resume launched {r['launches']}, not {want}")
+        if not (r["resumed"] and r["resumed"][0].startswith(
+                f"resumed from checkpoint @ {RESUME_STEP} env steps (iter 2), written by a "
+                "1x2x1 (data x model x time) mesh")):
+            fail(f"rank {r['rank']} did not resume the model2 checkpoint: {r['resumed']}")
+        if r["learner_unequal"] or r["batch_unequal"] or not r["generator_as_ruled"]:
+            fail(f"rank {r['rank']} loaded other values than its part of the model2 "
+                 f"checkpoint: {r}")
+    return {"cli_ppo_cartpole_resume_one_device": one_launches,
+            "cli_ppo_cartpole_resume_data2": {
+                n: sum(r["launches"][n] for r in rank_out) for n in want}}
+
+
 def start_cli_mesh(dp2: bool = True) -> dict:
     """Starts phases 34 (with `dp2`; without, only its uninterrupted run,
     which phase 39 holds the resumed ZeRO run against), 38 and 39: the dry
     run and every chain of CLI runs at once in threads, each command's 2
     ranks sharing the card. `finish_cli_mesh` waits and checks."""
-    from concurrent.futures import ThreadPoolExecutor
-
     root = tempfile.mkdtemp(prefix="chip_smoke_cli_mesh_")
     chains = {**(DP2_CHAINS if dp2 else {"dp2_straight": DP2_CHAINS["dp2_straight"]}),
               **AXES_CHAINS}
-    ex = ThreadPoolExecutor(1)
-    pending = ex.submit(cli_chains, root, chains)
-    ex.shutdown(wait=False)
     return {"root": root, "dp2": dp2, "t0": time.perf_counter(), "dryrun": start_dryrun(),
-            "chains": pending}
+            "chains": cli_chains(root, chains)}
 
 
-def finish_cli_mesh(started: dict) -> None:
-    """Phases 34, 38 and 39's checks, in order, once their runs are done."""
+def finish_cli_mesh(started: dict) -> dict:
+    """Phase 40, as soon as the runs whose checkpoints it resumes are done
+    (beside the other chains, on cores those leave idle), then phases 34,
+    38 and 39's checks, in order, once all their runs are done; returns
+    phase 40's launches."""
     root = started["root"]
+    pending = started["chains"]
     try:
-        chains = started["chains"].result()
+        written = {k: pending[k].result() for k in ("dp2_straight", "model2")}
+        check_runs(written)
+        t0 = time.perf_counter()
+        launches = phase_resume_layouts(root)
+        print(f"chip_smoke: 40 resume under another layout took {time.perf_counter() - t0:.1f} s")
+        chains = {k: f.result() for k, f in pending.items()}
         check_runs(chains)
         if started["dp2"]:
             phase_cli_dp2(root, chains)
         phase_dryrun(started["dryrun"])
         phase_cli_axes(root, chains)
-        print(f"CLI and dry-run phases {'34, ' if started['dp2'] else ''}38, 39: "
+        print(f"CLI and dry-run phases {'34, ' if started['dp2'] else ''}38, 39, 40: "
               f"{time.perf_counter() - started['t0']:.1f} s from their start")
+        return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4188,7 +4461,8 @@ def main():
     timed_phase("26 finger profile", finger_profile, finger_trainer, finger_times)
     timed_phase("27 pixel profile", pixel_profile, pixel_trainer, pixel_times, render_cases)
     # phases 34, 38 and 39 (subprocesses sharing the card) after every profile
-    timed_phase("34, 38, 39 cli and dry run", finish_cli_mesh, start_cli_mesh())
+    resume_launches = timed_phase("34, 38, 39 cli and dry run, 40 resume", finish_cli_mesh,
+                                  start_cli_mesh())
     for name, k in kernels.items():
         # every number is a reading: each path was driven with the counts at
         # 0 just before it and read just after its last update
@@ -4212,7 +4486,10 @@ def main():
                    # the model and time axes and ZeRO, per rank (35-37); the dry
                    # run's and the CLI's ranks are processes of their own (38, 39)
                    **{path: n[name] for path, n in axes_launches.items()},
-                   "dryrun_multichip_2": None, "cli_ppo_cartpole_axes": None}
+                   "dryrun_multichip_2": None, "cli_ppo_cartpole_axes": None,
+                   # a checkpoint resumed under another layout (40): in this
+                   # process, and summed over its 2 ranks
+                   **{path: n[name] for path, n in resume_launches.items()}}
         k["launches"] = sum(v for v in by_path.values() if v is not None)
         k["launches_by_path"] = by_path
         for extra in ("tol", "bytes", "call_ms", "plain_call_ms"):

@@ -18,7 +18,10 @@ process_id}` each launched process runs D·M·T / num_processes ranks and
 they meet at the coordinator, host:port. Processes that share a
 host are given LOCAL_RANK, their index among them, and LOCAL_WORLD_SIZE,
 their count, as torchrun gives them: their ranks then take distinct cards,
-and the backend counts every rank of the host (`parallel.mesh`).
+and the backend counts every rank of the host (`parallel.mesh`). A run
+resumes from its experiment's latest checkpoint under another mesh too,
+where the reference's does: the same `learner.zero_optimizer`, and with it
+the same `session.mesh.data` (`train.checkpoint`).
 
 Usage:
     python -m surreal_tpu_torch.cli.main train ppo --env.env_name cheetah-run \\
@@ -219,7 +222,7 @@ def _train(algo: str, learner: Config, env_cfg: Config, session: Config, device:
 
     trainer = _build_trainer(learner, env_cfg, session, device, mesh)
 
-    from surreal_tpu_torch.train.checkpoint import Checkpointer
+    from surreal_tpu_torch.train.checkpoint import Checkpointer, describe_layout
     from surreal_tpu_torch.train.metrics import MetricsWriter
 
     ckpt = Checkpointer(
@@ -233,9 +236,13 @@ def _train(algo: str, learner: Config, env_cfg: Config, session: Config, device:
     restore = str(session.restore).lower()
     latest = ckpt.latest_step()
     if restore in ("auto", "true", "1") and latest is not None:
+        # under another layout than the writer's, each rank takes its slice
+        # of the whole env batch (train.checkpoint)
         trainer.load_full_state(ckpt.restore(trainer.full_state))
-        log.info("resumed from checkpoint @ %d env steps (iter %d)",
-                 latest, trainer.global_iter)
+        written = ckpt.written_layout(latest)
+        log.info("resumed from checkpoint @ %d env steps (iter %d)%s", latest,
+                 trainer.global_iter,
+                 "" if written == ckpt.layout else f", written by {describe_layout(written)}")
     elif restore in ("true", "1"):
         raise SystemExit(f"--session.restore true but no checkpoint under {exp_dir}")
 

@@ -37,6 +37,9 @@ class Trainer:
     default_log_every = 10
     # The full state's keys that are this rank's own under a mesh (the rest,
     # the learner, is equal on every rank): a checkpoint keeps one per rank.
+    # Each is the rank's data index's slice of the whole env batch (but the
+    # generator), which a resume under another layout cuts anew
+    # (`train.checkpoint`).
     rank_keys = ("env_state", "obs", "ep_ret", "generator")
     mesh: Mesh | None = None
     local_envs: int

@@ -14,6 +14,7 @@ import torch
 
 from surreal_tpu_torch.algos.ddpg import DDPGConfig
 from surreal_tpu_torch.algos.ppo import PPOConfig
+from surreal_tpu_torch.parallel.mesh import Mesh
 from surreal_tpu_torch.train import DDPGTrainer, PPOTrainer
 from surreal_tpu_torch.train.checkpoint import Checkpointer
 
@@ -251,3 +252,204 @@ def test_resumed_gym_run_starts_fresh_episodes(tmp_path, kind):
         assert torch.equal(buf[rest], saved["replay"]["data"][k][rest]), k
         if k != "done":
             assert torch.equal(buf[last], saved["replay"]["data"][k][last]), k
+
+
+# --- a resume under another mesh layout ---
+
+# Layouts (data, model, time, zero); None is one device (no mesh).
+# The reference's verdicts, from its CLI on cartpole-balance (8 envs, horizon
+# 8, hidden [16,16] for PPO; rollout_steps 4, a ring of 256 and min_replay 16
+# for DDPG), each half in a process of its own with
+# XLA_FLAGS=--xla_force_host_platform_device_count=data*model*time, checkpointed
+# at 64 env steps and resumed to 128:
+#   python -m surreal_tpu.cli.main train ppo --env.env_name cartpole-balance
+#     --env.num_envs 8 --learner.horizon 8 --learner.hidden [16,16]
+#     --session.total_env_steps 64 --session.checkpoint_every_steps 64
+#     --session.mesh.data 2 [--session.mesh.model M --session.mesh.time T
+#     --learner.zero_optimizer true]
+#   then the same with --session.total_env_steps 128 under the resumed layout.
+RELAYOUTS = [
+    ("ppo", (2, 1, 1, False), None, True),
+    ("ppo", (2, 1, 1, False), (4, 1, 1, False), True),
+    ("ppo", None, (2, 1, 1, False), True),
+    ("ppo", (1, 2, 1, False), None, True),
+    ("ppo", (1, 1, 2, False), None, True),
+    ("ppo", (2, 2, 1, False), (1, 1, 1, False), True),
+    ("ppo", (2, 1, 1, True), (2, 1, 1, False), False),
+    ("ppo", (2, 1, 1, False), (2, 1, 1, True), False),
+    # the reference: moment chunks (4, 193) against the stored (2, 386)
+    ("ppo", (2, 1, 1, True), (4, 1, 1, True), False),
+    ("ddpg", (2, 1, 1, False), None, True),
+    ("ddpg", (2, 1, 1, False), (4, 1, 1, False), True),
+    ("ddpg", (2, 1, 1, True), (2, 1, 1, False), False),
+]
+# beyond the probe: the generator rule into and out of a model axis, and a
+# resume under the writer's own layout (each rank its own file, as written)
+RELAYOUTS_BY_RULE = [
+    ("ppo", (2, 1, 1, False), (2, 2, 1, False), True),
+    ("ppo", (2, 2, 1, False), (2, 1, 1, False), True),
+    ("ppo", (1, 2, 1, False), (1, 2, 1, False), True),
+]
+WHOLE_ENVS = 8
+RING_STEPS = 6  # != WHOLE_ENVS: a ring cut along the wrong axis shows
+
+
+def _layout_id(layout):
+    if layout is None:
+        return "none"
+    return "x".join(map(str, layout[:3])) + ("z" if layout[3] else "")
+
+
+def _whole_batch(algo, offset):
+    """A whole env batch of every kind of rank key, numbered from `offset`."""
+    g = torch.Generator().manual_seed(offset)
+    batch = {"env_state": {"q": torch.randn(WHOLE_ENVS, 3, generator=g),
+                           "t": torch.arange(WHOLE_ENVS) + offset,
+                           # a pixel frame stack
+                           "stack": torch.randint(0, 256, (WHOLE_ENVS, 6, 6, 3), generator=g,
+                                                  dtype=torch.uint8)},
+             "obs": torch.randn(WHOLE_ENVS, 5, generator=g),
+             "ep_ret": torch.randn(WHOLE_ENVS, generator=g)}
+    if algo == "ppo":  # an LSTM carry
+        batch["carry"] = [torch.randn(WHOLE_ENVS, 4, generator=g) for _ in range(2)]
+    else:
+        batch["replay"] = {"data": {"obs": torch.randn(RING_STEPS, WHOLE_ENVS, 5, generator=g),
+                                    "done": torch.rand(RING_STEPS, WHOLE_ENVS,
+                                                       generator=g) > 0.5},
+                           "total": 11}
+        batch["ou_state"] = torch.randn(WHOLE_ENVS, 2, generator=g)
+    return batch
+
+
+def _rows(batch, index, shards):
+    """Data index `index`'s slice of `shards` of a whole batch, the ring's
+    along its env axis (dim 1)."""
+    def cut(x, axis):
+        if not isinstance(x, torch.Tensor):
+            return x
+        rows = x.shape[axis] // shards
+        return x.narrow(axis, index * rows, rows).clone()
+
+    out = {}
+    for key, value in batch.items():
+        axis = 1 if key == "replay" else 0
+        if isinstance(value, dict):
+            out[key] = {k: ({kk: cut(vv, axis) for kk, vv in v.items()} if isinstance(v, dict)
+                            else cut(v, axis)) for k, v in value.items()}
+        elif isinstance(value, list):
+            out[key] = [cut(v, axis) for v in value]
+        else:
+            out[key] = cut(value, axis)
+    return out
+
+
+def _gen_state(seed):
+    return torch.Generator().manual_seed(seed).get_state()
+
+
+LEARNER = {"net": {"w": torch.arange(6.0).reshape(2, 3)}, "global_iter": 3, "update_step": 12}
+
+
+def _write_checkpoint(folder, algo, layout):
+    """A checkpoint as the port writes it under `layout`: rank r's generator
+    is seeded with 100 + r; the ranks of a data index but its model-0,
+    time-0 member hold rows of another batch, so a read of the wrong member
+    shows."""
+    whole, decoy = _whole_batch(algo, 0), _whole_batch(algo, 50)
+    os.makedirs(folder)
+    if layout is None:
+        torch.save({**LEARNER, **whole, "generator": _gen_state(100)}, folder / "state.pt")
+        return whole
+    data, model, time_, zero = layout
+    torch.save(LEARNER, folder / "state.pt")
+    with open(folder / "mesh.json", "w") as f:
+        json.dump({"data": data, "model": model, "time": time_, "zero": zero}, f)
+    for r in range(data * model * time_):
+        member = r % (model * time_)
+        part = _rows(decoy if member else whole, r // (model * time_), data)
+        torch.save({**part, "generator": _gen_state(100 + r)}, folder / f"rank{r}.pt")
+    return whole
+
+
+def _new_ranks(layout):
+    """(mesh, data index) of each rank of `layout`; one (None, 0) for one device."""
+    if layout is None:
+        return [(None, 0)]
+    shape = dict(zip(("data", "model", "time"), layout[:3]))
+    world = layout[0] * layout[1] * layout[2]
+    meshes = [Mesh(shape=shape, rank=r, world_size=world, device=torch.device("cpu"),
+                   group=None) for r in range(world)]
+    return [(m, m.index["data"]) for m in meshes]
+
+
+@pytest.mark.parametrize(
+    "algo,written,resumed,resumes", RELAYOUTS + RELAYOUTS_BY_RULE,
+    ids=[f"{a}-{_layout_id(w)}-to-{_layout_id(r)}" for a, w, r, _ in
+         RELAYOUTS + RELAYOUTS_BY_RULE])
+def test_resume_under_another_layout(tmp_path, monkeypatch, algo, written, resumed, resumes):
+    """Each rank of the resumed layout gets the learner of state.pt and its
+    data index's slice of the writer's whole batch, bit for bit, from the
+    files of the writer's model-0, time-0 members alone; its generator
+    follows checkpoint.py's rule. A refused pair raises ValueError naming
+    both layouts before a tensor file is read."""
+    whole = _write_checkpoint(tmp_path / "ck" / "latest" / "7", algo, written)
+    keys = PPOTrainer.rank_keys if algo == "ppo" else DDPGTrainer.rank_keys
+    read = []
+    load = torch.load
+
+    def recording_load(path, *a, **k):
+        read.append(os.path.basename(path))
+        return load(path, *a, **k)
+
+    monkeypatch.setattr(torch, "load", recording_load)
+    old_data = 1 if written is None else written[0]
+    members = 1 if written is None else written[1] * written[2]
+    for mesh, index in _new_ranks(resumed):
+        shards = 1 if resumed is None else resumed[0]
+        target = {**LEARNER, **_rows(whole, index, shards),
+                  "generator": _gen_state(1000 + index)}  # a fresh trainer's fold
+        ck = Checkpointer(str(tmp_path / "ck"), mesh=mesh, rank_keys=keys,
+                          zero=resumed is not None and resumed[3])
+        read.clear()
+        if not resumes:
+            with pytest.raises(ValueError) as err:
+                ck.restore(target)
+            for layout in (written, resumed):
+                d, m, t, zero = layout
+                assert (f"a data mesh of {d}" if m == t == 1 else f"a {d}x{m}x{t}") + \
+                    (" with ZeRO" if zero else "") in str(err.value)
+            assert read == []
+            continue
+        got = ck.restore(target)
+        _assert_equal_states({k: v for k, v in got.items() if k not in keys}, LEARNER)
+        if written == resumed:  # the rank's own file, as written
+            assert read == ["state.pt", f"rank{mesh.rank}.pt"]
+            continue
+        assert read == ["state.pt"] + [f"rank{d * members}.pt" for d in range(old_data)
+                                       if written is not None]
+        _assert_equal_states({k: v for k, v in got.items() if k in keys and k != "generator"},
+                             _rows(whole, index, shards))
+        if algo == "ddpg":
+            assert got["replay"]["data"]["obs"].shape == (RING_STEPS, WHOLE_ENVS // shards, 5)
+            assert got["replay"]["total"] == 11
+        unfolded = resumed is not None and resumed[1] > 1
+        if index == 0 or unfolded:  # the writer's data index 0
+            want = 100
+        elif written is not None and written[1] == 1 and index < old_data:
+            want = 100 + index * members  # the writer's of the same data index
+        else:
+            want = 1000 + index  # a fresh start's
+        assert torch.equal(got["generator"], _gen_state(want)), (mesh and mesh.rank, want)
+
+
+def test_resume_under_another_layout_checks_the_ring_totals(tmp_path):
+    """The writer's data indices must agree on the ring's count."""
+    folder = tmp_path / "ck" / "latest" / "7"
+    whole = _write_checkpoint(folder, "ddpg", (2, 1, 1, False))
+    part = torch.load(folder / "rank1.pt", weights_only=True)
+    part["replay"]["total"] = 12
+    torch.save(part, folder / "rank1.pt")
+    target = {**LEARNER, **whole, "generator": _gen_state(1000)}
+    ck = Checkpointer(str(tmp_path / "ck"), rank_keys=DDPGTrainer.rank_keys)
+    with pytest.raises(ValueError, match=r"replay\['total'\] differs"):
+        ck.restore(target)

@@ -6,21 +6,30 @@ smaller data axis), at tiny flags on cartpole-balance.
 Held: config.json is written once, by rank 0; every rank logs the same
 evaluation; a run checkpointed at 128 env steps and resumed to 256 ends
 with the checkpoint of the uninterrupted run, bit for bit, the learner
-and each rank's own part; a resume under another mesh.data raises; `eval`
-takes the learner of a mesh's checkpoint. The ranks' evaluation runs the
+and each rank's own part; the data-2 checkpoint resumes under a 1-rank
+mesh and on one device, as the reference's does, each run bit for bit a
+one-device trainer given the writer's whole env batch; `eval` takes the
+learner of a mesh's checkpoint. The ranks' evaluation runs the
 reference's 1,000-step episodes (~7 s a run on the CPU: the children do
-not see a test's registry)."""
+not see a test's registry); the in-process resumes register
+cartpole-balance with 50-step episodes (tests/test_torch_cli.py's
+`short_cartpole`), which the one iteration after the checkpoint does not
+reach."""
 
 import json
+import logging
 import os
 import re
+import shutil
 import subprocess
 import sys
 
-import pytest
 import torch
 
-from surreal_tpu_torch.cli.main import main
+from surreal_tpu_torch.cli.configs import generate_configs
+from surreal_tpu_torch.cli.main import _build_trainer, _parse_overrides, main
+from surreal_tpu_torch.envs import available_envs, registry
+from surreal_tpu_torch.envs.cartpole import Cartpole
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = ["--env.env_name", "cartpole-balance", "--env.num_envs", "8",
@@ -94,7 +103,79 @@ def _equal(a, b, path="ck"):
         assert a == b, path
 
 
-def test_data_two_resume_and_eval(tmp_path, capfd):
+def _short_cartpole(**kw):
+    env = Cartpole(swing_up=False, sparse=False, **kw)
+    env.episode_steps = 50
+    return env
+
+
+def whole_state(folder):
+    """The one-device full state of a mesh's step directory: state.pt's
+    learner, the env batch of the model-0, time-0 rank of each data index
+    joined along the envs, and data index 0's generator."""
+    with open(os.path.join(folder, "mesh.json")) as f:
+        layout = json.load(f)
+    members = layout.get("model", 1) * layout.get("time", 1)
+    parts = [torch.load(os.path.join(folder, f"rank{d * members}.pt"), weights_only=True)
+             for d in range(layout["data"])]
+
+    def join(xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.cat(xs)
+        if isinstance(xs[0], dict):
+            return {k: join([x[k] for x in xs]) for k in xs[0]}
+        return type(xs[0])(join([x[i] for x in xs]) for i in range(len(xs[0])))
+
+    state = torch.load(os.path.join(folder, "state.pt"), weights_only=True)
+    state.update({k: join([p[k] for p in parts]) for k in parts[0] if k != "generator"})
+    state["generator"] = parts[0]["generator"]
+    return state
+
+
+class _Lines(logging.Handler):
+    """Keeps the messages logged under `surreal_tpu_torch` while attached."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def resume_on_one_device(tmp_path, monkeypatch, source, step, name, *extra):
+    """The checkpoint of run `source` at `step`, copied into experiment
+    `name` and resumed by the CLI in this process under `extra` for one
+    iteration (64 env steps): its checkpoint holds the new layout's files
+    alone and equals, bit for bit, a one-device trainer given the writer's
+    whole state (`whole_state`) through load_full_state that ran one
+    iteration."""
+    src = tmp_path / source / "checkpoints" / "latest" / str(step)
+    shutil.copytree(src, tmp_path / name / "checkpoints" / "latest" / str(step))
+    argv = _argv(tmp_path, name, step + 64, *extra)
+    lines = _Lines()
+    logger = logging.getLogger("surreal_tpu_torch")
+    with monkeypatch.context() as m:
+        available_envs()  # the builtin names first
+        m.setitem(registry._REGISTRY, "cartpole-balance", _short_cartpole)
+        logger.addHandler(lines)
+        try:
+            assert main(argv) == 0
+        finally:
+            logger.removeHandler(lines)
+        learner, env_cfg, session = generate_configs("ppo", _parse_overrides(argv[2:-2]))
+        twin = _build_trainer(learner, env_cfg, session, "cpu")
+        twin.load_full_state(whole_state(src))
+        twin.run(1)
+    assert [m for m in lines.lines if m.startswith(
+        f"resumed from checkpoint @ {step} env steps (iter {step // 64}), written by ")]
+    got = _checkpoint(tmp_path / name, step + 64)
+    assert set(got) == ({"state.pt", "rank0.pt"} if extra else {"state.pt"})
+    merged = {**got["state.pt"], **got.get("rank0.pt", {})}
+    _equal(merged, twin.full_state)
+
+
+def test_data_two_resume_and_eval(tmp_path, capfd, monkeypatch):
     out, text = _train(tmp_path, "straight", 256)
     assert len(re.findall(r"wrote .*config\.json", text)) == 1
     assert "2 ranks over gloo (the ranks run on the CPU)" in out
@@ -117,10 +198,9 @@ def test_data_two_resume_and_eval(tmp_path, capfd):
     assert len(re.findall(r"rank\d\] resumed from checkpoint @ 128", text)) == 2
     _equal(_checkpoint(tmp_path / "resumed", 256), straight)
 
-    # one device, or a 1-rank mesh, in this process: no ranks to wait for
-    for extra in (["--session.mesh.data", "1"], []):
-        with pytest.raises(ValueError, match="written by a data mesh of 2"):
-            main(_argv(tmp_path, "resumed", 384, *extra))
+    # a 1-rank mesh, or one device, in this process: no ranks to wait for
+    for name, extra in (("one_rank", ["--session.mesh.data", "1"]), ("one_device", [])):
+        resume_on_one_device(tmp_path, monkeypatch, "straight", 128, name, *extra)
 
     capfd.readouterr()
     assert main(["--device", "cpu", "eval", "--experiment", str(exp), "--episodes", "2"]) == 0

@@ -2,7 +2,8 @@
 `make_sharded_ddpg_step` on 2 of the 8 virtual CPU devices (as
 tests/test_torch_dp.py does for PPO), and the trainers on a mesh: a 1-rank
 mesh is the one-device trainer bit for bit, 2 ranks keep the learner
-bitwise equal, the ring's depth and the noise ladder come from the global
+bitwise equal, a one-device checkpoint resumes on 2 ranks, each with its
+slice, the ring's depth and the noise ladder come from the global
 num_envs, and the options a mesh refuses raise with their reasons.
 
 DDPG on cheetah-run, 4 envs a rank, 4 env steps and 2 updates an
@@ -17,6 +18,7 @@ and the Z-filter rtol 1e-5; the learner bitwise equal across ranks.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +38,7 @@ from surreal_tpu_torch.algos import ppo as tppo
 from surreal_tpu_torch.models.convert import params_from_flax, params_to_flax
 from surreal_tpu_torch.parallel import mesh as pmesh
 from surreal_tpu_torch.train import DDPGTrainer, PPOTrainer
+from surreal_tpu_torch.train.checkpoint import Checkpointer
 from test_torch_dp import PER, S, env_tensors, ref_mesh, shard
 from test_torch_mesh import run_ranks
 from torch_helpers import assert_close, fast_jit, reference_reset_rows, to_torch
@@ -222,6 +225,42 @@ def test_two_rank_trainers_keep_the_learner_equal(tmp_path, algo):
     assert not torch.equal(a["own"]["generator"], b["own"]["generator"])
     if algo == "ddpg":  # a shard's warm-up (16 transitions a rank, 32 in all) ended
         assert a["learner"]["update_step"] == 2 * DDPG_SMALL["updates_per_iteration"]
+
+
+def test_one_device_ddpg_checkpoint_resumes_on_two_ranks(tmp_path):
+    """A one-device DDPG checkpoint after one warm-up iteration, resumed on
+    a data mesh of 2 (the reference resumes it): each rank's replay ring
+    (64 steps deep, cut along its env axis), OU noise and env rows are its
+    half of the checkpoint's, its learner the checkpoint's bit for bit; rank
+    0 takes the checkpoint's generator, rank 1 keeps a fresh start's
+    (fold_in of the seed and its index). The next save writes the mesh's
+    files into a step directory of its own."""
+    one = _trainer("ddpg")
+    one.run(1, log_every=1)
+    saved = one.full_state
+    root = tmp_path / "ck"
+    Checkpointer(str(root)).save(32, saved)
+    (tmp_path / "ranks").mkdir()
+    job = {"kind": "ddpg_relayout", "root": str(root), "cfg": DDPG_SMALL, "step": 64,
+           "kw": {"num_envs": 8, "seed": 3, "device": "cpu", **NETS["ddpg"]}}
+    ranks = run_ranks(tmp_path / "ranks", job)
+    assert saved["replay"]["total"] == 4 and saved["replay"]["data"]["obs"].shape[:2] == (64, 8)
+    word = np.random.SeedSequence([3, 1]).generate_state(1, np.uint64)[0]
+    generators = [saved["generator"], torch.Generator().manual_seed(int(word)).get_state()]
+    for d, out in enumerate(ranks):
+        fs, rows = out["fs"], slice(4 * d, 4 * d + 4)
+        _equal({k: v for k, v in fs.items() if k not in DDPGTrainer.rank_keys},
+               {k: v for k, v in saved.items() if k not in DDPGTrainer.rank_keys})
+        _equal(fs["env_state"], {k: v[rows] for k, v in saved["env_state"].items()})
+        for key in ("obs", "ep_ret", "ou_state"):
+            assert torch.equal(fs[key], saved[key][rows]), key
+        _equal(fs["replay"], {"data": {k: v[:, rows] for k, v in
+                                       saved["replay"]["data"].items()}, "total": 4})
+        assert torch.equal(fs["generator"], generators[d]), d
+    assert torch.equal(ranks[1]["fresh_generator"], generators[1])
+    assert sorted(os.listdir(root / "latest" / "32")) == ["state.pt"]
+    assert sorted(os.listdir(root / "latest" / "64")) == ["mesh.json", "rank0.pt", "rank1.pt",
+                                                          "state.pt"]
 
 
 def test_ring_depth_and_noise_ladder_come_from_the_global_batch():

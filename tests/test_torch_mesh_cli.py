@@ -7,8 +7,9 @@ tiny flags), 2 iterations.
 Held: the run, stopped after 1 iteration and resumed, ends with the
 uninterrupted run's checkpoint bit for bit; the checkpoint's learner is
 whole (the moments gathered over the data ranks) and `mesh.json` names
-the layout; a resume under another layout raises; `eval` takes the
-learner on one device and scores what the ranks scored."""
+the layout; a resume on one device raises, as the reference's does for a
+ZeRO checkpoint; `eval` takes the learner on one device and scores what
+the ranks scored."""
 
 import json
 import re
@@ -16,7 +17,15 @@ import re
 import pytest
 
 from surreal_tpu_torch.cli.main import main
-from test_torch_dp_cli import _checkpoint, _equal, _evals, _finish, _launch, _argv
+from test_torch_dp_cli import (
+    _argv,
+    _checkpoint,
+    _equal,
+    _evals,
+    _finish,
+    _launch,
+    resume_on_one_device,
+)
 
 ITER = 64  # 8 envs x horizon 8
 
@@ -34,9 +43,11 @@ def _eval(tmp_path, name, capfd):
     return json.loads(capfd.readouterr().out.strip().splitlines()[-1])
 
 
-def check_resume_and_eval(tmp_path, capfd, flags, layout, other):
-    """2 iterations straight; 1, then resumed to 2; a resume under one
-    device; `eval` (also tests/test_torch_tp_cli.py's)."""
+def check_resume_and_eval(tmp_path, capfd, monkeypatch, flags, layout, refusal=None):
+    """2 iterations straight; 1, then resumed to 2; on one device, a
+    resume for one more iteration (`resume_on_one_device`), or with
+    `refusal` the ValueError that matches it; `eval` (also
+    tests/test_torch_tp_cli.py's)."""
     out, text = _run(tmp_path, "straight", 2, *flags)
     assert "2 ranks over gloo" in out
     evals = _evals(text)
@@ -56,14 +67,17 @@ def check_resume_and_eval(tmp_path, capfd, flags, layout, other):
     assert len(re.findall(rf"rank\d\] resumed from checkpoint @ {ITER}", text)) == 2
     _equal(_checkpoint(tmp_path / "resumed", 2 * ITER), straight)
 
-    with pytest.raises(ValueError, match=other):  # one device, in this process
-        main(_argv(tmp_path, "resumed", 3 * ITER))
+    if refusal is None:  # one device, in this process
+        resume_on_one_device(tmp_path, monkeypatch, "resumed", 2 * ITER, "one_device")
+    else:
+        with pytest.raises(ValueError, match=refusal):
+            main(_argv(tmp_path, "resumed", 3 * ITER))
     result = _eval(tmp_path, "straight", capfd)
     assert f"{result['return_mean']:.1f}" in evals[0][-1]
 
 
-def test_zero_run_resumes_bit_for_bit_and_evaluates(tmp_path, capfd):
-    check_resume_and_eval(tmp_path, capfd,
+def test_zero_run_resumes_bit_for_bit_and_evaluates(tmp_path, capfd, monkeypatch):
+    check_resume_and_eval(tmp_path, capfd, monkeypatch,
                           ["--session.mesh.data", "2", "--learner.zero_optimizer", "true"],
                           {"data": 2, "model": 1, "time": 1, "zero": True},
                           "written by a data mesh of 2 with ZeRO")

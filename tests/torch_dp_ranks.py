@@ -359,6 +359,22 @@ def ddpg_zero_resume(job, mesh):
             "chunk": a.state.actor_opt.mu.numel(), "updates": a.state.update_step}
 
 
+def ddpg_relayout(job, mesh):
+    """A DDPG trainer on the mesh resumed from the one-device checkpoint
+    under job["root"], then saved at job["step"] under the mesh: its
+    generator before the load, and its full state after it."""
+    from surreal_tpu_torch.train import DDPGTrainer
+    from surreal_tpu_torch.train.checkpoint import Checkpointer
+
+    t = DDPGTrainer("cheetah-run", tddpg.DDPGConfig(**job["cfg"]), mesh=mesh, **job["kw"])
+    fresh = t.generator.get_state()
+    ck = Checkpointer(job["root"], mesh=mesh, rank_keys=t.rank_keys)
+    t.load_full_state(ck.restore(t.full_state))
+    fs = t.full_state
+    ck.save(job["step"], fs)
+    return {"fresh_generator": fresh, "fs": fs}
+
+
 def fail_one(local):
     """Rank 1 fails; rank 0 waits, as a rank blocked in a collective would."""
     if local == 1:
@@ -374,4 +390,5 @@ def hang(local):
 
 KINDS = {"collectives": collectives, "axes": axes, "ppo": ppo, "ddpg": ddpg, "trainer": trainer,
          "zero_adam": zero_adam, "tshard": tshard, "tp": tp,
-         "ddpg_zero_resume": ddpg_zero_resume, "zero_twins": zero_twins}
+         "ddpg_zero_resume": ddpg_zero_resume, "zero_twins": zero_twins,
+         "ddpg_relayout": ddpg_relayout}
