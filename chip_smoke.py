@@ -8,6 +8,7 @@
     python3 chip_smoke.py --learn [DIR] [cheetah-run] [CLI FLAGS]
     python3 chip_smoke.py --dp
     python3 chip_smoke.py --axes
+    python3 chip_smoke.py --counted-cli CLI ARGUMENTS (phase 12 runs it)
 
 Phases, each of which exits non-zero on failure:
   1. prints the card (nvidia-smi name, power limit) and the torch version;
@@ -64,14 +65,16 @@ Phases, each of which exits non-zero on failure:
      and update; checks from the launch counters, set to 0 before its first
      iteration, that every iteration launched each loss kernel 16 times and
      the GAE kernel never;
- 12. the session layer and the CLI (surreal_tpu_torch.cli.main, in this
-     process): `envs` lists the 26 names; `train ppo` on cartpole-balance at
-     its recipe's full width (256 envs, (256, 256), horizon 128, 4 epochs x
-     8 minibatches of 4096 rows, entropy 0.01) with the fused loss for 3
-     iterations and a checkpoint each, into a temporary directory; checks
-     from the counters, set to 0 before it, that each iteration launched
-     each loss kernel 32 times and GAE never, the checkpoints' steps and
-     that config.json is generate_configs' output; the same command to 5
+ 12. the session layer and the CLI (surreal_tpu_torch.cli.main): `envs`
+     lists the 26 names; `train ppo` on cartpole-balance at its recipe's
+     full width (256 envs, (256, 256), horizon 128, 4 epochs x 8
+     minibatches of 4096 rows, entropy 0.01) with the fused loss for 3
+     iterations and a checkpoint each, into a temporary directory, a
+     process of its own (`--counted-cli`: the CLI with the counters set to
+     0 before it, printed after it); checks from the counters that each
+     iteration launched each loss kernel 32 times and GAE never, the
+     checkpoints' steps and that config.json is generate_configs' output;
+     the same command (a process too) to 5
      iterations must resume at iteration 3; the 98,304-step checkpoint
      loaded into a fresh trainer equals what was saved, bit for bit;
      `eval --best` over 16 episodes; the DDPG cell of phase 7 (its ring of
@@ -80,8 +83,10 @@ Phases, each of which exits non-zero on failure:
      cartpole iteration with debug_checks beside an unchecked one;
      `bench` with BENCH_WARMUP_ITERS=1 BENCH_ITERS=2; and `train ppo` with
      `--learner.compute_dtype bfloat16 --learner.overlap true` for 2
-     iterations (32 + 32 loss launches each, from the counters) and `eval`
-     of its checkpoint;
+     iterations in this process (32 + 32 loss launches each, from the
+     counters) and `eval` of its checkpoint. The float32 runs and the two
+     `eval` commands (processes of their own, as a user runs them) run
+     beside the rest of the phase;
  13. the rasteriser at 128 envs and 84 x 84 on cheetah (a floating root),
      ball_in_cup, manipulator_bring_ball and cartpole (a stick figure):
      the card's frames against the CPU's from the same states (at most 1
@@ -107,7 +112,8 @@ Phases, each of which exits non-zero on failure:
  16. the pixel CLI: `train ppo --env.env_name cheetah-run --env.pixel_obs
      true --session.video true` at the recipe for one iteration (the loss
      32 + 32 launches from the counters), the eval video read
-     back to its frames, and `eval --best`;
+     back to its frames, and `eval --best`, a process of its own that runs
+     beside phase 12 and is checked after it;
  17. PPO on cheetah-run at bench.py's configuration with bfloat16 networks
      (parameters float32) and the fused loss, 1 warm-up and 2 timed
      iterations: the launch counters as in phase 5, and the loss kernels
@@ -147,13 +153,16 @@ Phases, each of which exits non-zero on failure:
  24. (mujoco, dm_control) one 'mujoco' eval GIF (dm_control's GL frames,
      MUJOCO_GL=egl unless set) of 8 steps, read back;
  25. the profiler checks of the PPO slice: times one more iteration split
-     into rollout and update, profiles another for the device's idle share,
-     and profiles one minibatch step of the update for its loss kernels (2:
+     into rollout and update, profiles a window of 16 rollout steps and one
+     whole update for the device's kernels and idle share per step, per
+     update and per iteration, and profiles one minibatch step of the update for its loss kernels (2:
      one forward, one backward), a forward and a backward of
      fused_clip_loss and one call of returns.gae with backend "pallas" (one
      device kernel each). torch.profiler stays attached to the process once
      used and slows every later launch, so it comes last and nothing is
-     timed after it;
+     timed after it. The profiles read the profiler's raw device events
+     (`device_events`), not its event tree, which takes minutes to build
+     for a whole iteration;
  26. profiles the DDPG cell (one rollout, one update block), the recurrent
      PPO cell (a rollout of 16 steps, one epoch of 8 minibatch steps) and
      the finger-spin cell (a rollout of 4 steps, one epoch of 4 minibatch
@@ -164,7 +173,9 @@ Phases, each of which exits non-zero on failure:
      epoch in float32 and in bfloat16): device kernels per decision step,
      the render's share of the rollout's device time, the idle shares, each
      epoch's kernels with the most device time.
- 28-34, the data axis (A15a), run after phase 24 and before the profiles.
+ 28-34, the data axis (A15a), run before the profiles: 28-33 from a
+     thread once the chains of 34, 38 and 39 are done, beside 35-37 (from
+     another), the rest of phase 12 and phase 40.
      A rank is a child process (the port's parallel.mesh.spawn) that writes
      its numbers to a JSON file; the parent checks them, and a failed or
      hung rank fails the run. Phases 28-32 run in one pair of gloo ranks
@@ -192,16 +203,17 @@ Phases, each of which exits non-zero on failure:
      a checkpoint each, the same stopped after 1 and resumed, the two last
      checkpoints equal bit for bit, config.json written once, the ranks'
      evaluations equal, and `eval` of the checkpoint. Its runs go at once
-     with phase 38's and 39's, after phase 27.
-Phases 35-37 run in one more pair of gloo ranks sharing the card, which
-make a data 2, a time 2 and a model 2 mesh in turn over their group:
+     with phase 38's and 39's, from the end of phase 24 (see 39).
+Phases 35-37 run in one more pair of gloo ranks sharing the card (beside
+28-33's), which make a data 2, a time 2 and a model 2 mesh in turn over
+their group:
  35. ZeRO: the flagship at data 2 with `zero_optimizer`, in turns with the
-     replicated run from the same seed, 3 iterations each: the two learners
+     replicated run from the same seed, 2 iterations each: the two learners
      bit for bit equal, 71,303 moment floats a rank, 32 + 32 loss launches
      an iteration a rank and GAE never, the all_gathers timed; then DDPG's
      recipe (phase 32's cell) with and without ZeRO, 6 iterations in turns,
      bit for bit;
- 36. the time axis: the flagship at data 1 x time 2 for 3 iterations, the
+ 36. the time axis: the flagship at data 1 x time 2 for 2 iterations, the
      ranks' learners bitwise equal, 32 + 32 launches an iteration; the GAE
      scan split over time against `gae` on one rollout (1e-5 relative); a
      time-sharded update on the card against the CPU's (1e-5);
@@ -211,8 +223,7 @@ make a data 2, a time 2 and a model 2 mesh in turn over their group:
      within 1e-5 of the one-device update of the same trajectory, and the
      whole first iteration within TP_ITERATION_TOL of the one-device one,
      a limit that a planted rollout fault (the noise of the wrong rows) is
-     checked to exceed; 3 iterations, 32
-     + 32 launches each; one more split into rollout and update with the
+     checked to exceed; 2 iterations, 32 + 32 launches each; one more split into rollout and update with the
      collectives counted and timed per rollout step and per minibatch step;
      one bfloat16 iteration;
  38. `python -m surreal_tpu_torch.dryrun 2 cuda`: the reference's six
@@ -224,13 +235,15 @@ make a data 2, a time 2 and a model 2 mesh in turn over their group:
      checkpoint bit for bit phase 34's uninterrupted replicated run's; the
      ranks' evaluations equal. The dry run and the CLI runs of phases 34
      and 39 (five chains of commands) go at once, each command's 2 ranks
-     sharing the card, after phase 27: no profile runs beside them. Each
+     sharing the card, from the end of phase 24, beside phases 16 and 12
+     (launch-bound processes on cores of their own); their checks follow
+     35-37. No timed in-process cell and no profile runs beside them. Each
      phase's wall time is printed.
  40. a checkpoint resumed under another layout, as the reference's orbax
-     restore resumes it, as soon as the runs of 34 and 39 that write its
-     checkpoints are done (beside their other runs): phase 34's data-2
-     checkpoint through the CLI in this process on one device for one
-     iteration (the learner it loaded bit for bit state.pt, its env batch
+     restore resumes it, after phases 16 and 12 once the runs of 34 and 39
+     that write its checkpoints are done (beside their other runs): phase
+     34's data-2 checkpoint through the CLI in this process on one device
+     for one iteration (the learner it loaded bit for bit state.pt, its env batch
      the two ranks' files joined, its generator rank 0's; its checkpoint
      after the iteration bit for bit a one-device trainer's given that
      state in this process; the same check with the ranks' rows swapped, a
@@ -293,6 +306,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -397,15 +411,33 @@ def phase_build():
                 print(f"build {source}: {line.strip()}")
 
 
-def device_kernels(fn) -> list[str]:
-    """Names of the device kernels that one call of `fn` runs."""
+def device_events(fn) -> list[tuple[str, float]]:
+    """(name, device µs) of each device kernel that one call of `fn` runs,
+    under torch.profiler. Read from the profiler's raw events: building
+    its FunctionEvent tree (`prof.events()`) takes tens of µs of host time
+    an event, and a whole PPO iteration records ~10^6 of them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # A profile that saw no device event at all is taken again: kineto now
+    # and then drops a short session's events (seen on the card: one GAE
+    # call's kernel, right after the loss kernels' profiles saw theirs).
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [(e.name(), e.duration_ns() * 1e-3)
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA
+                  and not getattr(e, "is_hidden_event", lambda: False)()]
+        if events:
+            break
+    return events
+
+
+def device_kernels(fn) -> list[str]:
+    """Names of the device kernels that one call of `fn` runs."""
+    return [name for name, _ in device_events(fn)]
 
 
 def loss_autograd_times(plk, batch, coefs) -> dict[str, tuple[float, float]]:
@@ -709,31 +741,28 @@ def phase_slice(dev):
     return trainer, launches
 
 
-def breakdown(trainer):
-    """Two more iterations: one split into rollout and update on the host
-    clock, then one under torch.profiler for the device's busy time and
-    kernel count (the profiler slows the host, so the idle share is taken
-    against the unprofiled iteration's wall time); and the loss's device
-    kernels, for one call each way and in one minibatch step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+PROFILED_STEPS = 16  # rollout steps of phase 25's profile, of the horizon's 128
 
+
+def breakdown(trainer):
+    """One more iteration split into rollout and update on the host clock;
+    then, under torch.profiler, a window of PROFILED_STEPS rollout steps and
+    one whole update of that iteration's trajectory, for the device's busy
+    time and kernel count per rollout step and per update (the profiler
+    slows the host, so the idle shares are taken against the unprofiled
+    times of the same parts), and an iteration's from them; and the loss's
+    device kernels, for one call each way and in one minibatch step."""
     from surreal_tpu_torch.algos import ppo
 
     t = trainer
-
-    def iteration():
-        traj, t.env_state, t.obs, t.ep_ret, _ = ppo.rollout(
-            t.cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.ep_ret, t.generator)
-        torch.cuda.synchronize()
-        mid = time.perf_counter()
-        ppo.update(t.cfg, t.state, traj, t.generator)
-        torch.cuda.synchronize()
-        return mid, traj
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    t1, traj = iteration()
+    traj, t.env_state, t.obs, t.ep_ret, _ = ppo.rollout(
+        t.cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.ep_ret, t.generator)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ppo.update(t.cfg, t.state, traj, t.generator)
+    torch.cuda.synchronize()
     t2 = time.perf_counter()
 
     # A forward and a backward of fused_clip_loss at the main path's
@@ -760,15 +789,29 @@ def breakdown(trainer):
     if len(gae_names) != 1 or "gae_kernel" not in gae_names[0]:
         fail("one call of returns.gae(backend='pallas') is not one device kernel")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        iteration()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_s = sum(e.time_range.elapsed_us() for e in kernels) * 1e-6
+    window = dataclasses.replace(t.cfg, horizon=PROFILED_STEPS)
+
+    def rollout():
+        t.env_state, t.obs, t.ep_ret = ppo.rollout(
+            window, t.env, t._flatten, t.state, t.env_state, t.obs, t.ep_ret, t.generator)[1:4]
+
+    n_roll, busy_roll = profiled(rollout)
+    n_upd, busy_upd = profiled(lambda: ppo.update(t.cfg, t.state, traj, t.generator))
+    per_step = n_roll / PROFILED_STEPS
+    roll_wall = (t1 - t0) * PROFILED_STEPS / t.cfg.horizon
+    busy_s = busy_roll * t.cfg.horizon / PROFILED_STEPS + busy_upd
     wall_s = t2 - t0
     print(f"breakdown: rollout {t1 - t0:.3f} s ({(t1 - t0) / t.cfg.horizon * 1e3:.2f} ms per "
-          f"env step), update {t2 - t1:.3f} s; profiled iteration: {len(kernels)} device "
-          f"kernels, device busy {busy_s:.3f} s = {100 * busy_s / wall_s:.1f}% of the "
-          f"unprofiled {wall_s:.3f} s (idle {100 * (1 - busy_s / wall_s):.1f}%)")
+          f"env step), update {t2 - t1:.3f} s; profiled {PROFILED_STEPS} rollout steps: "
+          f"{n_roll} device kernels ({per_step:.1f} an env step), device busy {busy_roll:.4f} s "
+          f"(idle {100 * (1 - busy_roll / roll_wall):.1f}% of the same steps unprofiled); the "
+          f"whole update: {n_upd} device kernels, device busy {busy_upd:.4f} s (idle "
+          f"{100 * (1 - busy_upd / (t2 - t1)):.1f}%); an iteration: "
+          f"{per_step * t.cfg.horizon + n_upd:.0f} device kernels, device busy {busy_s:.3f} s "
+          f"= {100 * busy_s / wall_s:.1f}% of the unprofiled {wall_s:.3f} s (idle "
+          f"{100 * (1 - busy_s / wall_s):.1f}%)")
+    if n_roll == 0 or n_upd == 0:
+        fail("the profiler saw no device kernel in the PPO slice")
 
     # One minibatch step of the main path's update: the first 16 steps of the
     # rollout are 16 x 256 = 4096 rows, the main path's minibatch, taken in
@@ -788,19 +831,13 @@ def profiled(fn, top: int = 0) -> tuple:
     """(device kernels, their summed device seconds) of one call of `fn`
     under torch.profiler; with `top`, also the `top` kernel names with the
     most device ms, and their ms."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = [e.time_range.elapsed_us() for e in events]
+    events = device_events(fn)
+    spans = [us for _, us in events]
     if not top:
         return len(spans), sum(spans) * 1e-6
     by_name = {}
-    for e, us in zip(events, spans):
-        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + us * 1e-3
+    for name, us in events:
+        by_name[name[:80]] = by_name.get(name[:80], 0.0) + us * 1e-3
     return len(spans), sum(spans) * 1e-6, dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
 
 
@@ -1371,15 +1408,87 @@ class LogLines(logging.Handler):
         return False
 
 
+class ThreadStdout:
+    """Stands in for sys.stdout (main() installs it): a thread inside
+    `captured` writes to its own buffer, every other thread to the real
+    stdout. contextlib.redirect_stdout would swap sys.stdout for every
+    thread, and take in what the phases running from threads print."""
+
+    def __init__(self, real):
+        self.real, self.local = real, threading.local()
+
+    def write(self, text):
+        return getattr(self.local, "buffer", self.real).write(text)
+
+    def flush(self):
+        getattr(self.local, "buffer", self.real).flush()
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+    @contextlib.contextmanager
+    def captured(self, buffer):
+        self.local.buffer = buffer
+        try:
+            yield buffer
+        finally:
+            del self.local.buffer
+
+
 def cli_stdout(argv) -> str:
     """Runs the port's CLI in this process; returns what it printed."""
     from surreal_tpu_torch.cli.main import main as cli
 
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    if not isinstance(sys.stdout, ThreadStdout):
+        sys.stdout = ThreadStdout(sys.stdout)
+    with sys.stdout.captured(io.StringIO()) as buf:
         if cli(argv) != 0:
             fail(f"the CLI returned non-zero for {argv}")
     return buf.getvalue()
+
+
+def start_command(argv: list, timeout_s: float):
+    """Runs `argv` as a subprocess, with this checkout on its PYTHONPATH,
+    from a thread; returns a future of (seconds, CompletedProcess)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+
+    def run():
+        t0 = time.perf_counter()
+        done = subprocess.run(argv, env=env, capture_output=True, text=True, timeout=timeout_s)
+        return time.perf_counter() - t0, done
+
+    ex = ThreadPoolExecutor(1)
+    future = ex.submit(run)
+    ex.shutdown(wait=False)
+    return future
+
+
+def run_after(futures: list, fn):
+    """fn() in a thread once every future in `futures` is done; returns its
+    future."""
+    from concurrent.futures import ThreadPoolExecutor, wait
+
+    ex = ThreadPoolExecutor(1)
+    future = ex.submit(lambda: (wait(futures), fn())[1])
+    ex.shutdown(wait=False)
+    return future
+
+
+def start_eval(experiment: str, *flags):
+    """`eval --experiment experiment *flags` through the port's CLI, a
+    process of its own as a user runs it, started beside what follows."""
+    return start_command([sys.executable, "-m", "surreal_tpu_torch.cli.main", "eval",
+                          "--experiment", experiment, *flags, "--device", CLI_DEVICE], 600)
+
+
+def eval_printed(started) -> tuple[dict, float]:
+    """(the JSON line an `eval` of `start_eval` printed last, its seconds)."""
+    secs, done = started.result()
+    if done.returncode != 0:
+        fail(f"{' '.join(done.args[2:])} failed:\n{done.stderr[-3000:]}")
+    return json.loads(done.stdout.strip().splitlines()[-1]), secs
 
 
 def evals_logged(lines) -> list[dict]:
@@ -1419,22 +1528,44 @@ def unequal_leaves(a, b) -> list[str]:
     return bad
 
 
+def counted_cli(argv: list) -> None:
+    """`python3 chip_smoke.py --counted-cli ARGV...`: the port's CLI in this
+    process, the kernels' counters set to 0 before it; prints what the CLI
+    printed, then the counters as the last line."""
+    kernels = path_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    printed = cli_stdout(argv)
+    torch.cuda.synchronize()
+    print(printed, end="")
+    print(json.dumps({n: k.launches for n, k in kernels.items()}))
+
+
+def counted_cli_run(argv: list) -> tuple[float, list, dict]:
+    """The port's CLI in a process of its own (`counted_cli`): (seconds,
+    the messages it logged, the kernels' launches in it)."""
+    secs, done = start_command([sys.executable, os.path.abspath(__file__), "--counted-cli",
+                                *argv], 900).result()
+    if done.returncode != 0:
+        fail(f"the CLI failed for {argv}:\n{done.stderr[-3000:]}")
+    logged = re.findall(r"surreal_tpu_torch[\w.]*\] (.*)", done.stderr)
+    return secs, logged, json.loads(done.stdout.strip().splitlines()[-1])
+
+
 def phase_cli(dev, ddpg_t) -> tuple[dict, dict]:
     """The session layer and the CLI on the card: `envs`; cartpole-balance
     PPO trained through the CLI at the recipe's full width with the fused
-    loss for 3 iterations, a checkpoint each, killed and resumed to 5; the
-    98,304-step checkpoint loaded into a fresh trainer; `eval --best`; the
-    DDPG cell's full state (its ring of 999,936 transitions) saved and
-    restored into a fresh trainer, and one more iteration of both; one
-    checked iteration (debug_checks) beside an unchecked one; and `bench`.
-    and a short run with bfloat16 networks and the overlapped step,
-    evaluated. Returns the kernels' launches on the CLI's training runs:
-    the float32 one's, the bfloat16 overlapped one's."""
-    from surreal_tpu_torch.cli.configs import generate_configs, to_algo_config
+    loss for 3 iterations, a checkpoint each, killed and resumed to 5, each
+    command a process of its own (`counted_cli`), then `eval --best`, the
+    three beside the rest of the phase in this process: a short run with
+    bfloat16 networks and the overlapped step (its `eval` a process too)
+    and `cli_session_checks`; then the 98,304-step checkpoint loaded into a
+    fresh trainer. Returns the kernels' launches on the CLI's training runs:
+    the float32 ones' (both processes), the bfloat16 overlapped one's."""
+    from surreal_tpu_torch.cli.configs import generate_configs
     from surreal_tpu_torch.cli.main import _build_trainer, _parse_overrides
     from surreal_tpu_torch.config import Config
     from surreal_tpu_torch.envs import available_envs
-    from surreal_tpu_torch.train import DDPGTrainer, PPOTrainer
     from surreal_tpu_torch.train.checkpoint import STATE_FILE, Checkpointer
 
     t_phase = time.perf_counter()
@@ -1451,37 +1582,59 @@ def phase_cli(dev, ddpg_t) -> tuple[dict, dict]:
                  "--session.results_dir", root, "--session.experiment_name", "cartpole",
                  "--device", str(dev)]
         exp = os.path.join(root, "cartpole")
+
+        def steps_saved():
+            return sorted(int(s) for s in os.listdir(os.path.join(exp, "checkpoints", "latest"))
+                          if s.isdigit())
+
+        def float32_runs():
+            first = counted_cli_run(["train", "ppo", *flags, "--session.total_env_steps",
+                                     str(3 * CARTPOLE_ITER)])
+            latest = steps_saved()
+            second = counted_cli_run(["train", "ppo", *flags, "--session.total_env_steps",
+                                      str(5 * CARTPOLE_ITER)])
+            return first, latest, second, steps_saved(), start_eval(exp, "--best", "--episodes",
+                                                                    "16")
+
+        float32 = run_after([], float32_runs)
+
+        # bfloat16 networks and the overlapped step through the CLI: 2
+        # iterations after the priming rollout, then its checkpoint evaluated
         for k in kernels.values():
             k.launches = 0
-        with LogLines() as lines:
-            t0 = time.perf_counter()
-            cli_stdout(["train", "ppo", *flags, "--session.total_env_steps",
-                        str(3 * CARTPOLE_ITER)])
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            launches_3 = {n: k.launches for n, k in kernels.items()}
-            latest = sorted(int(s) for s in os.listdir(os.path.join(exp, "checkpoints", "latest"))
-                            if s.isdigit())
-            cli_stdout(["train", "ppo", *flags, "--session.total_env_steps",
-                        str(5 * CARTPOLE_ITER)])
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-        launches = {n: k.launches for n, k in kernels.items()}
+        t0 = time.perf_counter()
+        cli_stdout(["train", "ppo", *CARTPOLE_FLAGS, "--learner.compute_dtype", "bfloat16",
+                    "--learner.overlap", "true", "--session.total_env_steps",
+                    str(2 * CARTPOLE_ITER), "--session.eval_episodes", "4",
+                    "--session.results_dir", root, "--session.experiment_name", "bf16_overlap",
+                    "--device", str(dev)])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bf16_launches = {n: k.launches for n, k in kernels.items()}
+        eval_bf16 = start_eval(os.path.join(root, "bf16_overlap"), "--episodes", "4")
+        out.update(bf16_overlap_train_2_iterations_s=t1 - t0,
+                   bf16_overlap_launches=bf16_launches)
+        want = {"gae": 0, "ppo_loss_fwd": 32 * 2, "ppo_loss_bwd": 32 * 2}
+        if bf16_launches != want:
+            fail(f"the CLI's bf16 overlapped run launched {bf16_launches}, not {want}")
+        cli_session_checks(dev, ddpg_t, out)
+
+        (t_3, lines_3, launches_3), latest, (t_2, lines_2, launches_2), latest_after, \
+            eval_best = float32.result()
+        launches = {n: launches_3[n] + launches_2[n] for n in kernels}
         want3 = {"gae": 0, "ppo_loss_fwd": 32 * 3, "ppo_loss_bwd": 32 * 3}
         want5 = {"gae": 0, "ppo_loss_fwd": 32 * 5, "ppo_loss_bwd": 32 * 5}
-        resumed = [m for m in lines if m.startswith("resumed from checkpoint")]
-        latest_after = sorted(int(s) for s in os.listdir(
-            os.path.join(exp, "checkpoints", "latest")) if s.isdigit())
+        resumed = [m for m in lines_2 if m.startswith("resumed from checkpoint")]
         with open(os.path.join(exp, "config.json")) as f:
             saved_cfg = json.load(f)
         overrides = _parse_overrides(flags[:-2] + ["--session.total_env_steps",
                                                    str(5 * CARTPOLE_ITER)])
         want_cfg = dict(zip(("learner", "env", "session"),
                             (c.to_dict() for c in generate_configs("ppo", overrides))))
-        out.update(train_3_iterations_s=t1 - t0, resume_2_iterations_s=t2 - t1,
+        out.update(train_3_iterations_s=t_3, resume_2_iterations_s=t_2,
                    launches_first_3_iterations=launches_3, launches_all_5_iterations=launches,
                    checkpoints_after_3=latest, checkpoints_after_resume=latest_after,
-                   resumed_line=resumed, evals=evals_logged(lines),
+                   resumed_line=resumed, evals=evals_logged(lines_3 + lines_2),
                    config_json_equals_generate_configs=saved_cfg == want_cfg)
         if launches_3 != want3 or launches != want5:
             fail(f"the CLI cartpole path launched {launches_3} in 3 iterations and {launches} "
@@ -1510,39 +1663,31 @@ def phase_cli(dev, ddpg_t) -> tuple[dict, dict]:
             fail(f"the reloaded trainer differs from the checkpoint at {bad}")
         del fresh
 
-        t0 = time.perf_counter()
-        ev = json.loads(cli_stdout(["eval", "--experiment", exp, "--best", "--episodes", "16",
-                                    "--device", str(dev)]).strip().splitlines()[-1])
-        out.update(eval_best=ev, eval_best_s=time.perf_counter() - t0,
-                   best=ck.best_info)
+        out.update(best=ck.best_info)
+        ev, out["eval_best_s"] = eval_printed(eval_best)
+        out["eval_best"] = ev
         if not np.isfinite(ev["return_mean"]) or ev["episodes"] != 16:
             fail(f"eval --best printed {ev}")
-
-        # bfloat16 networks and the overlapped step through the CLI: 2
-        # iterations after the priming rollout, then its checkpoint evaluated
-        for k in kernels.values():
-            k.launches = 0
-        t0 = time.perf_counter()
-        cli_stdout(["train", "ppo", *CARTPOLE_FLAGS, "--learner.compute_dtype", "bfloat16",
-                    "--learner.overlap", "true", "--session.total_env_steps",
-                    str(2 * CARTPOLE_ITER), "--session.eval_episodes", "4",
-                    "--session.results_dir", root, "--session.experiment_name", "bf16_overlap",
-                    "--device", str(dev)])
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        bf16_launches = {n: k.launches for n, k in kernels.items()}
-        ev = json.loads(cli_stdout(["eval", "--experiment", os.path.join(root, "bf16_overlap"),
-                                    "--episodes", "4", "--device", str(dev)]
-                                   ).strip().splitlines()[-1])
-        out.update(bf16_overlap_train_2_iterations_s=t1 - t0,
-                   bf16_overlap_launches=bf16_launches, bf16_overlap_eval=ev)
-        want = {"gae": 0, "ppo_loss_fwd": 32 * 2, "ppo_loss_bwd": 32 * 2}
-        if bf16_launches != want:
-            fail(f"the CLI's bf16 overlapped run launched {bf16_launches}, not {want}")
+        ev, out["bf16_overlap_eval_s"] = eval_printed(eval_bf16)
+        out["bf16_overlap_eval"] = ev
         if not np.isfinite(ev["return_mean"]):
             fail(f"eval of the bf16 overlapped run printed {ev}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(out))
+    return launches, bf16_launches
+
+
+def cli_session_checks(dev, ddpg_t, out: dict) -> None:
+    """Phase 12 beside its two evaluations: the DDPG cell's full state
+    (its ring of 999,936 transitions) saved and restored into a fresh
+    trainer, and one more iteration of both; one checked iteration
+    (debug_checks) beside an unchecked one; and `bench`."""
+    from surreal_tpu_torch.cli.configs import generate_configs, to_algo_config
+    from surreal_tpu_torch.cli.main import _parse_overrides
+    from surreal_tpu_torch.train import DDPGTrainer, PPOTrainer
+    from surreal_tpu_torch.train.checkpoint import STATE_FILE, Checkpointer
 
     # the DDPG cell's full state, ring and all, into a fresh trainer
     root = tempfile.mkdtemp(prefix="chip_smoke_ddpg_")
@@ -1603,9 +1748,6 @@ def phase_cli(dev, ddpg_t) -> tuple[dict, dict]:
                 os.environ.pop(k)
             else:
                 os.environ[k] = v
-    out["phase_s"] = time.perf_counter() - t_phase
-    print(json.dumps(out))
-    return launches, bf16_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1948,14 +2090,16 @@ def phase_pixel_ddpg(dev):
     return t, launches, out
 
 
-def phase_cli_pixel(dev) -> dict:
+def phase_cli_pixel(dev) -> tuple:
     """`train ppo --env.env_name cheetah-run --env.pixel_obs true` through
     the CLI at the recipe with the fused loss for one iteration and its
     checkpoint, with `--session.video true`: the evaluation at the end
     records one GIF of video_steps frames, which must decode (by the port's
     own reader: the card's machine has no imaging package) to that many
-    168 x 168 frames; then `eval --best`. Returns the loss kernels' launches
-    on the training run."""
+    168 x 168 frames; then `eval --best`, a process of its own that runs
+    beside the phases that follow. Returns the loss kernels' launches on
+    the training run and the phase's end: a function that waits for the
+    evaluation and checks it."""
     from surreal_tpu_torch.train.video import read_gif
 
     t_phase = time.perf_counter()
@@ -1983,15 +2127,13 @@ def phase_cli_pixel(dev) -> dict:
         frames = read_gif(gif) if os.path.exists(gif) else None
         with open(os.path.join(exp, "config.json")) as f:
             saved = json.load(f)
-        ev = json.loads(cli_stdout(["eval", "--experiment", exp, "--best", "--episodes", "16",
-                                    "--device", str(dev)]).strip().splitlines()[-1])
+        eval_best = start_eval(exp, "--best", "--episodes", "16")
         out.update(train_1_iteration_with_eval_and_video_s=t1 - t0, kernel_launches=launches,
                    evals=evals_logged(lines), video=[m for m in lines if m.startswith("video")],
                    gif_bytes=os.path.getsize(gif) if frames is not None else None,
                    gif_frames=None if frames is None else list(frames.shape),
                    pixel_config=saved["env"]["pixel"], learner_lr=saved["learner"]["lr"],
-                   eval_best=ev, phase_s=time.perf_counter() - t_phase)
-        print(json.dumps(out))
+                   phase_s_before_eval_best=time.perf_counter() - t_phase)
         want = {"gae": 0, "ppo_loss_fwd": 32, "ppo_loss_bwd": 32}
         if launches != want:
             fail(f"the CLI pixel path launched {launches}, expected {want}")
@@ -1999,11 +2141,21 @@ def phase_cli_pixel(dev) -> dict:
             fail(f"the eval video {gif} is missing or not {video_steps} frames of 168 x 168")
         if len(np.unique(frames)) < 5:
             fail("the eval video's frames are nearly blank")
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+
+    def finish() -> None:
+        try:
+            ev, out["eval_best_s"] = eval_printed(eval_best)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        out["eval_best"] = ev
+        print(json.dumps(out))
         if not np.isfinite(ev["return_mean"]) or ev["episodes"] != 16:
             fail(f"eval --best printed {ev}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    return launches
+
+    return launches, finish
 
 
 def pixel_profile(t, times, render_cases):
@@ -3302,7 +3454,7 @@ def dp_rank_nccl(mesh) -> dict:
 # the three knobs through the CLI.
 # ---------------------------------------------------------------------------
 
-AXES_ITERS = 3  # 1 warm-up and 2 timed iterations of each flagship cell
+AXES_ITERS = 2  # 1 warm-up and 1 timed iteration of each flagship cell
 ZERO_CHUNK = 71_303  # ceil(142,605 / 2): a rank's chunk of the flagship's moments
 TP_PARAM_FLOATS = 71_821  # the six kernels halved (141,568 / 2) + 1,037 replicated
 # The tensor-parallel learner after one whole iteration against the one-device
@@ -3484,9 +3636,9 @@ def axes_rank_model(mesh) -> dict:
     values), the learners after each side's own iteration, the one-device
     update of the tensor-parallel rollout's trajectory (same parameters,
     Z-filter and permutations) against the tensor-parallel update, and a
-    one-device iteration with a planted rollout fault. Then 2 timed iterations, one more split into
-    rollout and update with the collectives counted and timed, and one
-    bfloat16 iteration."""
+    one-device iteration with a planted rollout fault. Then AXES_ITERS - 1
+    timed iterations, one more split into rollout and update with the
+    collectives counted and timed, and one bfloat16 iteration."""
     from surreal_tpu_torch.algos import ppo
     from surreal_tpu_torch.algos.ppo import PPOConfig
     from surreal_tpu_torch.parallel import mesh as pmesh, tp
@@ -3850,14 +4002,15 @@ DP2_CHAINS = {"dp2_straight": [("straight", ["--session.mesh.data", "2"], 2)],
                               ("resumed", ["--session.mesh.data", "2"], 2)]}
 
 
-def phase_cli_dp2(root: str, chains: dict) -> dict:
+def phase_cli_dp2(root: str, chains: dict, evaluated) -> dict:
     """Phase 34: `train ppo --session.mesh.data 2` through the port's CLI,
     as a user runs it (the command spawns its 2 ranks), at the
     cartpole-balance recipe's width with the fused loss: 2 iterations with
     a checkpoint each; the same run stopped after 1 and resumed; its last
     checkpoint against the uninterrupted run's, bit for bit; config.json
-    written once; the ranks' evaluation lines equal; then `eval`. The runs
-    are DP2_CHAINS', done (`cli_chains`) at once with phase 39's."""
+    written once; the ranks' evaluation lines equal; then `eval`, the
+    future `evaluated` of its printed line. The runs are DP2_CHAINS', done
+    (`cli_chains`) at once with phase 39's."""
     out = {"phase": "cli_ppo_cartpole_dp2", "run_at_once_with_phase_39": True}
     (_, _, straight_s, straight), = chains["dp2_straight"]
     (_, _, first_s, first), (_, _, resumed_s, resumed) = chains["dp2_resumed"]
@@ -3866,14 +4019,7 @@ def phase_cli_dp2(root: str, chains: dict) -> dict:
     unequal = unequal_leaves(cli_checkpoint(root, "straight")[0],
                              cli_checkpoint(root, "resumed")[0])
     resumed_lines = re.findall(r"rank\d\] resumed from checkpoint @ (\d+)", resumed.stderr)
-    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-    ran = subprocess.run([sys.executable, "-m", "surreal_tpu_torch.cli.main", "eval",
-                          "--experiment", os.path.join(root, "straight"), "--episodes", "16",
-                          "--device", CLI_DEVICE], env=env, capture_output=True, text=True,
-                         timeout=600)
-    if ran.returncode != 0:
-        fail(f"`eval` failed:\n{ran.stderr[-3000:]}")
-    result = json.loads(ran.stdout.strip().splitlines()[-1])
+    result, _ = evaluated.result()
     out.update(straight_2_iterations_s=straight_s, stopped_and_resumed_s=first_s + resumed_s,
                config_json_writes=writes, evals_by_rank=ev,
                resumed_from=resumed_lines, unequal_after_resume=unequal, eval=result,
@@ -4027,21 +4173,8 @@ def start_dryrun():
     """Phase 38's command, started in a thread: `python -m
     surreal_tpu_torch.dryrun 2 cuda`, the reference's six layouts over 2
     ranks sharing the card. Returns its future: (seconds, CompletedProcess)."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-
-    def run():
-        t0 = time.perf_counter()
-        done = subprocess.run([sys.executable, "-m", "surreal_tpu_torch.dryrun", "2",
-                               CLI_DEVICE], env=env, capture_output=True, text=True,
-                              timeout=600)
-        return time.perf_counter() - t0, done
-
-    ex = ThreadPoolExecutor(1)
-    future = ex.submit(run)
-    ex.shutdown(wait=False)
-    return future
+    return start_command([sys.executable, "-m", "surreal_tpu_torch.dryrun", "2", CLI_DEVICE],
+                         600)
 
 
 def phase_dryrun(started) -> None:
@@ -4345,36 +4478,54 @@ def start_cli_mesh(dp2: bool = True) -> dict:
     run and every chain of CLI runs at once in threads, each command's 2
     ranks sharing the card. `finish_cli_mesh` waits and checks."""
     root = tempfile.mkdtemp(prefix="chip_smoke_cli_mesh_")
-    chains = {**(DP2_CHAINS if dp2 else {"dp2_straight": DP2_CHAINS["dp2_straight"]}),
-              **AXES_CHAINS}
+    chains = cli_chains(root, {**(DP2_CHAINS if dp2 else {
+        "dp2_straight": DP2_CHAINS["dp2_straight"]}), **AXES_CHAINS})
+    # phase 34's `eval` of the run it reads, as soon as that is written
+    evaluated = run_after([chains["dp2_straight"]], lambda: eval_printed(start_eval(
+        os.path.join(root, "straight"), "--episodes", "16"))) if dp2 else None
     return {"root": root, "dp2": dp2, "t0": time.perf_counter(), "dryrun": start_dryrun(),
-            "chains": cli_chains(root, chains)}
+            "chains": chains, "evaluated": evaluated}
 
 
-def finish_cli_mesh(started: dict) -> dict:
+def resume_when_written(started: dict) -> dict:
     """Phase 40, as soon as the runs whose checkpoints it resumes are done
-    (beside the other chains, on cores those leave idle), then phases 34,
-    38 and 39's checks, in order, once all their runs are done; returns
-    phase 40's launches."""
+    (beside the other chains, on cores those leave idle); returns its
+    launches."""
+    written = {k: started["chains"][k].result() for k in ("dp2_straight", "model2")}
+    check_runs(written)
+    t0 = time.perf_counter()
+    launches = phase_resume_layouts(started["root"])
+    print(f"chip_smoke: 40 resume under another layout took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def check_cli_mesh(started: dict) -> None:
+    """Phases 34, 38 and 39's checks, in order, once all their runs are
+    done; then their root goes."""
     root = started["root"]
-    pending = started["chains"]
     try:
-        written = {k: pending[k].result() for k in ("dp2_straight", "model2")}
-        check_runs(written)
-        t0 = time.perf_counter()
-        launches = phase_resume_layouts(root)
-        print(f"chip_smoke: 40 resume under another layout took {time.perf_counter() - t0:.1f} s")
-        chains = {k: f.result() for k, f in pending.items()}
+        chains = {k: f.result() for k, f in started["chains"].items()}
         check_runs(chains)
         if started["dp2"]:
-            phase_cli_dp2(root, chains)
+            phase_cli_dp2(root, chains, started["evaluated"])
         phase_dryrun(started["dryrun"])
         phase_cli_axes(root, chains)
         print(f"CLI and dry-run phases {'34, ' if started['dp2'] else ''}38, 39, 40: "
               f"{time.perf_counter() - started['t0']:.1f} s from their start")
-        return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def finish_cli_mesh(started: dict) -> dict:
+    """Phase 40, then phases 34, 38 and 39's checks; returns phase 40's
+    launches."""
+    try:
+        launches = resume_when_written(started)
+    except BaseException:
+        shutil.rmtree(started["root"], ignore_errors=True)
+        raise
+    check_cli_mesh(started)
+    return launches
 
 
 def main():
@@ -4406,6 +4557,9 @@ def main():
         phase_axes()
         finish_cli_mesh(start_cli_mesh(dp2=False))
         return
+    if sys.argv[1:2] == ["--counted-cli"]:
+        counted_cli(sys.argv[2:])
+        return
     if sys.argv[1:2] == ["--learn"]:
         rest = sys.argv[2:]
         out_dir = (rest.pop(0) if rest and not rest[0].startswith("--")
@@ -4436,13 +4590,11 @@ def main():
     timed_phase("9 serving", phase_serving, dev, trainer)
     timed_phase("10 envs", phase_envs, dev)
     finger_trainer, finger_launches, finger_times = timed_phase("11 finger", phase_finger, dev)
-    cli_launches, cli_bf16_launches = timed_phase("12 cli", phase_cli, dev, ddpg_trainer)
     render_cases = timed_phase("13 render", phase_render, dev)
     pixel_trainer, pixel_launches, pixel_times = timed_phase("14 pixel ppo", phase_pixel_ppo,
                                                              dev)
     # its 2.1 GB ring is freed here
     pixel_ddpg_launches = timed_phase("15 pixel ddpg", phase_pixel_ddpg, dev)[1]
-    cli_pixel_launches = timed_phase("16 pixel cli", phase_cli_pixel, dev)
     bf16_launches = timed_phase("17 bf16", phase_bf16, dev)[1]
     timed_phase("18 bf16 parity", phase_bf16_parity, dev)
     overlap_launches = timed_phase("19 overlap", phase_overlap, dev, trainer)
@@ -4452,17 +4604,31 @@ def main():
     gym_launches = phase_ppo_gym(dev, found)
     phase_oracle(dev, found)
     phase_video_mujoco(dev, found, trainer)
-    dp_launches = timed_phase("28-32 data axis", phase_dp_shared)
-    nccl_launches = timed_phase("33 nccl", phase_dp_nccl)
-    axes_launches = timed_phase("35-37 zero, time, model", phase_axes)
+    # Every timed in-process cell is behind us. The CLI and dry-run
+    # subprocesses of 34, 38 and 39 start here and run beside the CLI
+    # phases 16 and 12; once they are done, two rank pairs at a time run
+    # 28-33 and 35-37 from threads, beside the rest of 12 and phase 40
+    # (launch-bound processes, each on cores of its own). The profiles
+    # 25-27 wait for all of them: a profile must have the card to itself.
+    t_mesh = time.perf_counter()
+    cli_mesh = start_cli_mesh()
+    started = [*cli_mesh["chains"].values(), cli_mesh["dryrun"]]
+    data_axis = run_after(started, lambda: (timed_phase("28-32 data axis", phase_dp_shared),
+                                            timed_phase("33 nccl", phase_dp_nccl)))
+    axes = run_after(started, lambda: timed_phase("35-37 zero, time, model", phase_axes))
+    cli_pixel_launches, cli_pixel_eval = timed_phase("16 pixel cli", phase_cli_pixel, dev)
+    cli_launches, cli_bf16_launches = timed_phase("12 cli", phase_cli, dev, ddpg_trainer)
+    cli_pixel_eval()
+    resume_launches = resume_when_written(cli_mesh)
+    (dp_launches, nccl_launches), axes_launches = data_axis.result(), axes.result()
+    check_cli_mesh(cli_mesh)
+    print(f"chip_smoke: 34, 38, 39 cli and dry run, 40 resume took "
+          f"{time.perf_counter() - t_mesh:.1f} s (beside 12, 16 and 28-37)")
     timed_phase("25 profile", breakdown, trainer)
     timed_phase("26 profiles", new_cells_profile, ddpg_trainer, ddpg_times, lstm_trainer,
                 lstm_times)
     timed_phase("26 finger profile", finger_profile, finger_trainer, finger_times)
     timed_phase("27 pixel profile", pixel_profile, pixel_trainer, pixel_times, render_cases)
-    # phases 34, 38 and 39 (subprocesses sharing the card) after every profile
-    resume_launches = timed_phase("34, 38, 39 cli and dry run, 40 resume", finish_cli_mesh,
-                                  start_cli_mesh())
     for name, k in kernels.items():
         # every number is a reading: each path was driven with the counts at
         # 0 just before it and read just after its last update

@@ -18,6 +18,7 @@ import torch
 from surreal_tpu.models.blocks import MLP as FlaxMLP
 from surreal_tpu_torch.models.blocks import _ACTIVATIONS, MLP
 from surreal_tpu_torch.models.convert import params_from_flax
+import torch_helpers  # noqa: F401  (one torch thread a test process)
 
 ELEMENTWISE = ["celu", "elu", "gelu", "hard_sigmoid", "hard_silu", "hard_swish", "hard_tanh",
                "leaky_relu", "log_sigmoid", "relu", "relu6", "selu", "sigmoid", "silu",

@@ -17,6 +17,7 @@ from surreal_tpu_torch.algos.ppo import PPOConfig
 from surreal_tpu_torch.parallel.mesh import Mesh
 from surreal_tpu_torch.train import DDPGTrainer, PPOTrainer
 from surreal_tpu_torch.train.checkpoint import Checkpointer
+import torch_helpers  # noqa: F401  (one torch thread a test process)
 
 
 def _state(offset):

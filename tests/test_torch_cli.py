@@ -26,6 +26,7 @@ from surreal_tpu_torch.cli.configs import generate_configs
 from surreal_tpu_torch.cli.main import main
 from surreal_tpu_torch.envs import available_envs, registry
 from surreal_tpu_torch.envs.cartpole import Cartpole
+import torch_helpers  # noqa: F401  (one torch thread a test process)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EPISODE_STEPS = 50

@@ -43,7 +43,7 @@ from surreal_tpu.models import ddpg_nets as jnets
 from surreal_tpu.models.actor_critic import PPOActorCritic as FlaxAC
 from surreal_tpu.parallel import dp as jdp
 from surreal_tpu_torch.models.convert import params_from_flax, params_to_flax
-from test_torch_mesh import run_ranks
+from test_torch_mesh import run_jobs, run_ranks
 from torch_helpers import fast_jit, reference_reset_rows, to_torch
 
 S, PER, T, STEPS = 2, 4, 8, 2
@@ -82,13 +82,20 @@ def metrics_np(m):
 
 def build_case(mode, tmp_path_factory, zero=False, time=1):
     """The reference's sharded PPO steps, and the port's ranks on the same
-    inputs and per-shard draws; `mode` is "ppo", "lstm" or "overlap"
-    (tests/test_torch_dp_overlap.py). With `zero`, both sides' Adam is
-    ZeRO's (tests/test_torch_zero.py), and the ranks run the replicated
-    Adam after it on the same inputs (their "twin" learner). With `time`
-    > 1, both meshes are S x 1 x time and the GAE scan is split over time
-    (tests/test_torch_tshard.py): the port's ranks are S·time, each with
-    its data index's draws."""
+    inputs and per-shard draws (`reference_case`)."""
+    mode, ref, job = reference_case(mode, zero, time)
+    return mode, ref, run_ranks(tmp_path_factory.mktemp(f"dp_{mode}"), job, world=S * time)
+
+
+def reference_case(mode, zero=False, time=1):
+    """The reference's sharded PPO steps, and the job that runs the port's
+    ranks on the same inputs and per-shard draws; `mode` is "ppo", "lstm"
+    or "overlap" (tests/test_torch_dp_overlap.py). With `zero`, both sides'
+    Adam is ZeRO's (tests/test_torch_zero.py), and the ranks run the
+    replicated Adam after it on the same inputs (their "twin" learner).
+    With `time` > 1, both meshes are S x 1 x time and the GAE scan is split
+    over time (tests/test_torch_tshard.py): the port's ranks are S·time,
+    each with its data index's draws."""
     lstm = mode == "lstm"
     cfg_kw = dict(horizon=T, epochs=2, num_minibatches=2, kl_target=KL_TARGET[mode],
                   **(dict(zero_optimizer=True, zero_shards=S) if zero else {}),
@@ -124,6 +131,9 @@ def build_case(mode, tmp_path_factory, zero=False, time=1):
     mesh = ref_mesh(time)
     spec = jdp.train_state_spec(state)
     state = jdp.place_by_spec(mesh, state, spec)
+    # the batch on the mesh as the step returns it: the step's second call
+    # then reuses the first's compiled program
+    env_state, obs, ep_ret, carry = jdp.shard_env_batch(mesh, (env_state, obs, ep_ret, carry))
     n_perm = PER if lstm else T * PER
     if lstm:
         roll = fast_jit(lambda s, es, o, c, r, k: jlstm.rollout(cfg, net.apply, step_fn, flat,
@@ -174,12 +184,20 @@ def build_case(mode, tmp_path_factory, zero=False, time=1):
         lr_scales.append(float(state.lr_scale))
     ref = {"state": jax.device_get(state), "metrics": metrics, "lr_scales": lr_scales,
            "obs": np.asarray(obs)}
-    return mode, ref, run_ranks(tmp_path_factory.mktemp(f"dp_{mode}"), job, world=S * time)
+    return mode, ref, job
 
 
-@pytest.fixture(scope="module", params=["ppo", "lstm"])
-def ppo_case(request, tmp_path_factory):
-    return build_case(request.param, tmp_path_factory)
+@pytest.fixture(scope="module")
+def cases(tmp_path_factory):
+    """Both modes' references, and their ranks in one group."""
+    refs = {mode: reference_case(mode) for mode in ("ppo", "lstm")}
+    out = run_jobs(tmp_path_factory.mktemp("dp"), {m: job for m, (_, _, job) in refs.items()})
+    return {m: (m, ref, out[m]) for m, (_, ref, _) in refs.items()}
+
+
+@pytest.fixture(params=["ppo", "lstm"])
+def ppo_case(request, cases):
+    return cases[request.param]
 
 
 def test_sharded_ppo_steps_match_the_reference(ppo_case):

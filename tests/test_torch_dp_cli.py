@@ -30,6 +30,7 @@ from surreal_tpu_torch.cli.configs import generate_configs
 from surreal_tpu_torch.cli.main import _build_trainer, _parse_overrides, main
 from surreal_tpu_torch.envs import available_envs, registry
 from surreal_tpu_torch.envs.cartpole import Cartpole
+import torch_helpers  # noqa: F401  (one torch thread a test process)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = ["--env.env_name", "cartpole-balance", "--env.num_envs", "8",
@@ -175,8 +176,11 @@ def resume_on_one_device(tmp_path, monkeypatch, source, step, name, *extra):
     _equal(merged, twin.full_state)
 
 
-def test_data_two_resume_and_eval(tmp_path, capfd, monkeypatch):
-    out, text = _train(tmp_path, "straight", 256)
+def test_data_two_resume_and_eval(tmp_path, monkeypatch):
+    # the uninterrupted run and the first half of the stopped one, at once
+    data2 = ["--session.mesh.data", "2"]
+    (out, text), _ = _finish([_launch(_argv(tmp_path, "straight", 256, *data2)),
+                              _launch(_argv(tmp_path, "resumed", 128, *data2))])
     assert len(re.findall(r"wrote .*config\.json", text)) == 1
     assert "2 ranks over gloo (the ranks run on the CPU)" in out
     for r in (0, 1):
@@ -193,7 +197,9 @@ def test_data_two_resume_and_eval(tmp_path, capfd, monkeypatch):
     assert "generator" in straight["rank1.pt"] and "net" in straight["state.pt"]
     assert not torch.equal(straight["rank0.pt"]["obs"], straight["rank1.pt"]["obs"])
 
-    _train(tmp_path, "resumed", 128)
+    # `eval` of the straight run, a process of its own, beside the rest
+    evaluating = _launch(["--device", "cpu", "eval", "--experiment", str(exp),
+                          "--episodes", "2"])
     _, text = _train(tmp_path, "resumed", 256)
     assert len(re.findall(r"rank\d\] resumed from checkpoint @ 128", text)) == 2
     _equal(_checkpoint(tmp_path / "resumed", 256), straight)
@@ -202,9 +208,8 @@ def test_data_two_resume_and_eval(tmp_path, capfd, monkeypatch):
     for name, extra in (("one_rank", ["--session.mesh.data", "1"]), ("one_device", [])):
         resume_on_one_device(tmp_path, monkeypatch, "straight", 128, name, *extra)
 
-    capfd.readouterr()
-    assert main(["--device", "cpu", "eval", "--experiment", str(exp), "--episodes", "2"]) == 0
-    result = json.loads(capfd.readouterr().out.strip().splitlines()[-1])
+    ((printed, _),) = _finish([evaluating])
+    result = json.loads(printed.strip().splitlines()[-1])
     assert f"{result['return_mean']:.1f}" in evals[0][0]
 
 

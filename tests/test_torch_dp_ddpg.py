@@ -52,14 +52,15 @@ ATOL_PARAM, RTOL_METRIC, RTOL_ZF, TOL_TRAJ = 1e-5, 1e-4, 1e-5, 1e-4
 
 @pytest.fixture(scope="module")
 def ddpg_case(tmp_path_factory):
-    return build_ddpg_case(tmp_path_factory)
+    ref, job = reference_ddpg_case()
+    return ref, run_ranks(tmp_path_factory.mktemp("dp_ddpg"), job)
 
 
-def build_ddpg_case(tmp_path_factory, zero=False):
-    """The reference's sharded DDPG steps and the port's ranks on the same
-    inputs and per-shard draws. With `zero`, both sides' Adam is ZeRO's
-    (tests/test_torch_zero.py), and the ranks run the replicated Adam after
-    it on the same inputs (their "twin" networks)."""
+def reference_ddpg_case(zero=False):
+    """The reference's sharded DDPG steps and the job that runs the port's
+    ranks on the same inputs and per-shard draws. With `zero`, both sides'
+    Adam is ZeRO's (tests/test_torch_zero.py), and the ranks run the
+    replicated Adam after it on the same inputs (their "twin" networks)."""
     cfg_kw = {**CFG, **(dict(zero_optimizer=True, zero_shards=S) if zero else {})}
     cfg = jddpg.DDPGConfig(**cfg_kw)
     env = jmake_env("cheetah-run")
@@ -89,9 +90,12 @@ def build_ddpg_case(tmp_path_factory, zero=False):
     state = jdp.place_by_spec(mesh, state, spec)
     step = jdp.make_sharded_ddpg_step(cfg, actor.apply, critic.apply, step_fn, flat, mesh,
                                       state_spec=spec)(replay)
+    # every input on the mesh as the step returns it: the second call then
+    # reuses the first's compiled program
     replay = JReplay(data=jax.tree.map(
         lambda x: jax.device_put(x, NamedSharding(mesh, P(None, "data"))), replay.data),
-        total=replay.total)
+        total=jax.device_put(replay.total, NamedSharding(mesh, P())))
+    env_state, obs, ou, ep_ret = jdp.shard_env_batch(mesh, (env_state, obs, ou, ep_ret))
     metrics = []
     for key in jax.random.split(jax.random.PRNGKey(3), STEPS):
         for r in range(S):
@@ -127,7 +131,7 @@ def build_ddpg_case(tmp_path_factory, zero=False):
     ref = {"state": jax.device_get(state), "metrics": metrics,
            "replay": jax.device_get(replay.data), "total": int(replay.total),
            "ou": np.asarray(ou)}
-    return ref, run_ranks(tmp_path_factory.mktemp("dp_ddpg"), job)
+    return ref, job
 
 
 def test_sharded_ddpg_step_matches_the_reference(ddpg_case):

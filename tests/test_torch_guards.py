@@ -22,6 +22,7 @@ from surreal_tpu_torch.algos.ppo import PPOConfig
 from surreal_tpu_torch.ops import returns
 from surreal_tpu_torch.train import DDPGTrainer, PPOTrainer
 from surreal_tpu_torch.utils import guards
+import torch_helpers  # noqa: F401  (one torch thread a test process)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 T, B = 8, 4

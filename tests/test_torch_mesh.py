@@ -22,6 +22,7 @@ from surreal_tpu.models import z_filter as jz
 from surreal_tpu_torch.envs.base import EnvState
 from surreal_tpu_torch.models import z_filter as tz
 from surreal_tpu_torch.parallel import dp, mesh as pmesh
+import torch_helpers  # noqa: F401  (one torch thread a test process)
 
 S = 2
 
@@ -33,6 +34,13 @@ def run_ranks(tmp_path, job, world=S, timeout_s=90):
     pmesh.spawn(torch_dp_ranks.run, world, (folder, world), timeout_s=timeout_s, threads=1)
     return [torch.load(os.path.join(folder, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
+
+
+def run_jobs(tmp_path, jobs, world=S, timeout_s=90):
+    """Runs each job of `jobs` ({name: job}), in order, in one group of
+    `world` gloo ranks; returns {name: its outputs by rank}."""
+    out = run_ranks(tmp_path, {"kind": "jobs", "jobs": jobs}, world, timeout_s * len(jobs))
+    return {name: [o[name] for o in out] for name in jobs}
 
 
 @pytest.fixture(scope="module")

@@ -31,24 +31,24 @@ ITER = 64  # 8 envs x horizon 8
 
 
 def _run(tmp_path, name, iters, *flags):
-    (out,) = _finish([_launch(_argv(tmp_path, name, iters * ITER, *flags,
-                                    "--session.checkpoint_every_steps", str(ITER)))])
+    (out,) = _runs(tmp_path, [(name, iters)], *flags)
     return out
 
 
-def _eval(tmp_path, name, capfd):
-    capfd.readouterr()
-    assert main(["--device", "cpu", "eval", "--experiment", str(tmp_path / name),
-                 "--episodes", "2"]) == 0
-    return json.loads(capfd.readouterr().out.strip().splitlines()[-1])
+def _runs(tmp_path, runs, *flags):
+    """The (name, iterations) runs at once, each a process of its own."""
+    return _finish([_launch(_argv(tmp_path, name, iters * ITER, *flags,
+                                  "--session.checkpoint_every_steps", str(ITER)))
+                    for name, iters in runs])
 
 
-def check_resume_and_eval(tmp_path, capfd, monkeypatch, flags, layout, refusal=None):
+def check_resume_and_eval(tmp_path, monkeypatch, flags, layout, refusal=None):
     """2 iterations straight; 1, then resumed to 2; on one device, a
     resume for one more iteration (`resume_on_one_device`), or with
     `refusal` the ValueError that matches it; `eval` (also
     tests/test_torch_tp_cli.py's)."""
-    out, text = _run(tmp_path, "straight", 2, *flags)
+    # the uninterrupted run and the first half of the stopped one, at once
+    (out, text), _ = _runs(tmp_path, [("straight", 2), ("resumed", 1)], *flags)
     assert "2 ranks over gloo" in out
     evals = _evals(text)
     assert set(evals) == {0, 1} and evals[0] == evals[1]
@@ -62,7 +62,9 @@ def check_resume_and_eval(tmp_path, capfd, monkeypatch, flags, layout, refusal=N
     assert learner["opt"]["mu"]["actor_torso.dense_0.weight"].shape == (16, 5)
     assert learner["opt"]["count"] == 8  # 2 iterations x 4 epochs x 1 minibatch
 
-    _run(tmp_path, "resumed", 1, *flags)
+    # `eval` of the straight run, a process of its own, beside the rest
+    evaluating = _launch(["--device", "cpu", "eval", "--experiment",
+                          str(tmp_path / "straight"), "--episodes", "2"])
     _, text = _run(tmp_path, "resumed", 2, *flags)
     assert len(re.findall(rf"rank\d\] resumed from checkpoint @ {ITER}", text)) == 2
     _equal(_checkpoint(tmp_path / "resumed", 2 * ITER), straight)
@@ -72,12 +74,13 @@ def check_resume_and_eval(tmp_path, capfd, monkeypatch, flags, layout, refusal=N
     else:
         with pytest.raises(ValueError, match=refusal):
             main(_argv(tmp_path, "resumed", 3 * ITER))
-    result = _eval(tmp_path, "straight", capfd)
+    ((printed, _),) = _finish([evaluating])
+    result = json.loads(printed.strip().splitlines()[-1])
     assert f"{result['return_mean']:.1f}" in evals[0][-1]
 
 
-def test_zero_run_resumes_bit_for_bit_and_evaluates(tmp_path, capfd, monkeypatch):
-    check_resume_and_eval(tmp_path, capfd, monkeypatch,
+def test_zero_run_resumes_bit_for_bit_and_evaluates(tmp_path, monkeypatch):
+    check_resume_and_eval(tmp_path, monkeypatch,
                           ["--session.mesh.data", "2", "--learner.zero_optimizer", "true"],
                           {"data": 2, "model": 1, "time": 1, "zero": True},
                           "written by a data mesh of 2 with ZeRO")

@@ -17,6 +17,7 @@ from surreal_tpu_torch.models import z_filter as tz
 from surreal_tpu_torch.models.actor_critic import PPOActorCritic
 from surreal_tpu_torch.models.convert import params_from_flax, params_to_flax
 from surreal_tpu_torch.models.distributions import DiagGauss
+import torch_helpers  # noqa: F401  (one torch thread a test process)
 
 TOL = 1e-6
 OBS_DIM, ACT_DIM, HIDDEN = 17, 6, (32, 32)

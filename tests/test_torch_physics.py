@@ -33,6 +33,7 @@ from surreal_tpu_torch.envs.cheetah import ASSET_DIR
 from surreal_tpu_torch.envs.physics import engine as te
 from surreal_tpu_torch.envs.physics import linalg as tl
 from surreal_tpu_torch.envs.physics import model as tm
+import torch_helpers  # noqa: F401  (one torch thread a test process)
 
 B = 64
 TOL_CLOSED, TOL_SOLVE = 2e-6, 2e-5

@@ -258,7 +258,7 @@ def reference(request):
                                     inner=dataclasses.replace(env_state.inner, t=t0))
     obs = jpixel_flatten(ts0.obs)
     net = FlaxAC(action_dim=6, hidden=HIDDEN, pixel_obs=True)
-    params = net.init(jax.random.PRNGKey(0), obs[:1])
+    params = jax.jit(net.init)(jax.random.PRNGKey(0), obs[:1])  # one program, not ~100
     state = jppo.init_state(cfg, params, 1)
     k_roll, k_up = jax.random.split(jax.random.PRNGKey(7))
     traj, env_state2, obs2, _, _ = fast_jit(
@@ -268,7 +268,9 @@ def reference(request):
     orig = pallas_ppo_loss.fused_clip_loss
     pallas_ppo_loss.fused_clip_loss = lambda *a, **k: orig(*a, **{**k, "interpret": True})
     try:
-        new_state, metrics = fast_jit(
+        # XLA's default optimisation: the stem's gradients run ~4x slower
+        # compiled at level 0 (fast_jit) than that saves in compiling
+        new_state, metrics = jax.jit(
             lambda s, tr, k: jppo.update(cfg, net.apply, s, tr, k))(state, traj, k_up)
     finally:
         pallas_ppo_loss.fused_clip_loss = orig

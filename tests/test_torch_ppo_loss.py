@@ -17,6 +17,7 @@ from surreal_tpu.models.distributions import DiagGauss as JGauss
 from surreal_tpu.ops import pallas_ppo_loss
 from surreal_tpu_torch.algos import ppo as tppo
 from surreal_tpu_torch.ops import ppo_loss_kernel as plk
+import torch_helpers  # noqa: F401  (one torch thread a test process)
 
 RTOL, ATOL_GRAD = 1e-5, 1e-6
 # The (A,) log_std gradient against jax.grad of _loss_fn: two float32 sums

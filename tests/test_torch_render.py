@@ -21,6 +21,7 @@ from surreal_tpu.envs import render as jrender
 from surreal_tpu_torch.envs import render
 from surreal_tpu_torch.envs.base import ASSET_DIR
 from surreal_tpu_torch.envs.physics.model import load
+import torch_helpers  # noqa: F401  (one torch thread a test process)
 
 ASSETS = sorted(p.stem for p in pathlib.Path(ASSET_DIR).glob("*.npz") if p.stem != "cheetah_pool")
 MAX_LEVELS, MAX_SHARE = 1, 0.01

@@ -11,6 +11,7 @@ import torch
 
 from surreal_tpu.data import replay as jreplay
 from surreal_tpu_torch.data import replay as treplay
+import torch_helpers  # noqa: F401  (one torch thread a test process)
 
 B, OBS = 4, 3
 

@@ -20,6 +20,7 @@ import torch
 from surreal_tpu.ops import returns as jret
 from surreal_tpu.ops.pallas_gae import gae_pallas
 from surreal_tpu_torch.ops import gae_kernel, returns
+import torch_helpers  # noqa: F401  (one torch thread a test process)
 
 TOL = 1e-5
 GAMMA, LAM = 0.99, 0.95

@@ -21,6 +21,7 @@ from surreal_tpu_torch.models.ddpg_nets import DDPGActor
 from surreal_tpu_torch.models.z_filter import ZFilterState
 from surreal_tpu_torch.train.evaluator import evaluate_policy
 from surreal_tpu_torch.train.serving import PolicyService, request_actions
+import torch_helpers  # noqa: F401  (one torch thread a test process)
 
 OBS, ACT = 5, 3
 

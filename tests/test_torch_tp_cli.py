@@ -10,6 +10,6 @@ check)."""
 from test_torch_mesh_cli import check_resume_and_eval
 
 
-def test_model_axis_run_resumes_bit_for_bit_and_evaluates(tmp_path, capfd, monkeypatch):
-    check_resume_and_eval(tmp_path, capfd, monkeypatch, ["--session.mesh.model", "2"],
+def test_model_axis_run_resumes_bit_for_bit_and_evaluates(tmp_path, monkeypatch):
+    check_resume_and_eval(tmp_path, monkeypatch, ["--session.mesh.model", "2"],
                           {"data": 1, "model": 2, "time": 1, "zero": False})

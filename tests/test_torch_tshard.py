@@ -28,7 +28,7 @@ import test_torch_dp as tdp
 from surreal_tpu.ops.returns import discounted_reverse_scan as jscan
 from surreal_tpu.parallel import tshard as jts
 from surreal_tpu_torch.ops.returns import discounted_reverse_scan
-from test_torch_mesh import run_ranks
+from test_torch_mesh import run_jobs
 
 T, B, WORLD = 64, 4, 4
 
@@ -38,7 +38,22 @@ def time_mesh(K):
 
 
 @pytest.fixture(scope="module")
-def scans(tmp_path_factory):
+def ranks(tmp_path_factory):
+    """The scans' and the data x time step's references, and both jobs in
+    one group of the port's WORLD ranks."""
+    scans, job = scans_reference()
+    mode, ref, step_job = tdp.reference_case("ppo", time=2)
+    out = run_jobs(tmp_path_factory.mktemp("tshard"), {"scans": job, "step": step_job},
+                   world=WORLD)
+    return (*scans, out["scans"]), (mode, ref, out["step"])
+
+
+@pytest.fixture(scope="module")
+def scans(ranks):
+    return ranks[0]
+
+
+def scans_reference():
     rs = np.random.RandomState(0)
     x = rs.randn(T, B).astype(np.float32)
     c = rs.uniform(0.8, 1.0, (T, B)).astype(np.float32)
@@ -52,7 +67,7 @@ def scans(tmp_path_factory):
                   "sharded": np.asarray(jts.time_sharded_reverse_scan(mesh, x, c))}
     job = {"kind": "tshard", "shape": (2, 1, 2), "x": torch.tensor(x), "c": torch.tensor(c),
            "lstm_cfg": dict(horizon=8, epochs=1, num_minibatches=1)}
-    return x, c, ref, run_ranks(tmp_path_factory.mktemp("tshard"), job, world=WORLD)
+    return (x, c, ref), job
 
 
 @pytest.mark.parametrize("K", [2, 4])
@@ -86,8 +101,8 @@ def test_lstm_time_ranks_are_replicas(scans):
 
 
 @pytest.fixture(scope="module")
-def time_case(tmp_path_factory):
-    return tdp.build_case("ppo", tmp_path_factory, time=2)
+def time_case(ranks):
+    return ranks[1]
 
 
 def test_data_by_time_steps_match_the_reference(time_case):

@@ -13,6 +13,7 @@ from surreal_tpu.utils import trackers as jtrackers
 from surreal_tpu_torch.train.metrics import MetricsWriter, _masked_crc32c
 from surreal_tpu_torch.utils import logger, profiling
 from surreal_tpu_torch.utils import trackers as ttrackers
+import torch_helpers  # noqa: F401  (one torch thread a test process)
 
 
 @pytest.fixture

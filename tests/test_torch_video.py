@@ -28,6 +28,7 @@ from surreal_tpu_torch.train.video import (
     rollout_states,
     save_gif,
 )
+import torch_helpers  # noqa: F401  (one torch thread a test process)
 
 
 def _decode(path):

@@ -33,7 +33,7 @@ from surreal_tpu_torch.models.actor_critic import PPOActorCritic
 from surreal_tpu_torch.models.convert import params_from_flax, params_to_flax
 from surreal_tpu_torch.parallel import zero
 from surreal_tpu_torch.train import DDPGTrainer, PPOTrainer
-from test_torch_mesh import run_ranks
+from test_torch_mesh import run_jobs
 
 K = 2
 # flat sizes: (32, 32) gives 3,501 floats (odd: one pad), (32, 31) 3,428
@@ -63,8 +63,31 @@ def test_flat_layout_is_ravel_pytrees_and_the_flagship_chunk():
     assert all(torch.equal(back[n], p) for n, p in port.named_parameters())
 
 
+# The trainer jobs of this file's ranks (test_zero_composes_with_lstm_and_overlap,
+# test_zero_ddpg_trainer_resumes_bit_for_bit)
+TWINS = {mode: {"kind": "zero_twins", "cfg": dict(horizon=8, epochs=2, num_minibatches=2),
+                "kw": kw}
+         for mode, kw in (("lstm", {"use_lstm": True, "lstm_size": 8}),
+                          ("overlap", {"overlap": True}))}
+DDPG_RESUME = {"kind": "ddpg_zero_resume",
+               "cfg": dict(rollout_steps=4, updates_per_iteration=2, batch_size=8, min_replay=8,
+                           replay_capacity=256, zero_optimizer=True)}
+
+
 @pytest.fixture(scope="module")
-def zero_adam_case(tmp_path_factory):
+def ranks(tmp_path_factory):
+    """Every job of this file's 2 gloo ranks in one group: the references'
+    (ZeRO Adam's chunks, the ZeRO PPO and DDPG steps) and the trainers'.
+    {name: (the reference's outputs or None, the ranks' outputs)}."""
+    refs = {"zero_adam": zero_adam_reference(), "ppo": tdp.reference_case("ppo", zero=True)[1:],
+            "ddpg": tdd.reference_ddpg_case(zero=True),
+            **{f"twins_{m}": (None, job) for m, job in TWINS.items()},
+            "ddpg_resume": (None, DDPG_RESUME)}
+    out = run_jobs(tmp_path_factory.mktemp("zero"), {k: job for k, (_, job) in refs.items()})
+    return {k: (ref, out[k]) for k, (ref, _) in refs.items()}
+
+
+def zero_adam_reference():
     mesh = tdp.ref_mesh()
     job = {"kind": "zero_adam", "cases": {}}
     ref = {}
@@ -88,7 +111,12 @@ def zero_adam_case(tmp_path_factory):
                           "updates": jax.device_get(u)})
         job["cases"][name] = {"hidden": hidden, "grads": grads}
         ref[name] = steps
-    return ref, run_ranks(tmp_path_factory.mktemp("zero_adam"), job)
+    return ref, job
+
+
+@pytest.fixture(scope="module")
+def zero_adam_case(ranks):
+    return ranks["zero_adam"]
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -111,8 +139,9 @@ def test_zero_adam_chunks_and_directions_match_the_reference(zero_adam_case, cas
 
 
 @pytest.fixture(scope="module")
-def ppo_zero_case(tmp_path_factory):
-    return tdp.build_case("ppo", tmp_path_factory, zero=True)
+def ppo_zero_case(ranks):
+    ref, out = ranks["ppo"]
+    return "ppo", ref, out
 
 
 def test_zero_ppo_steps_match_the_reference(ppo_zero_case):
@@ -135,8 +164,8 @@ def test_zero_ppo_learner_is_the_replicated_one_bit_for_bit(ppo_zero_case):
 
 
 @pytest.fixture(scope="module")
-def ddpg_zero_case(tmp_path_factory):
-    return tdd.build_ddpg_case(tmp_path_factory, zero=True)
+def ddpg_zero_case(ranks):
+    return ranks["ddpg"]
 
 
 def test_zero_ddpg_steps_match_the_reference(ddpg_zero_case):
@@ -184,24 +213,19 @@ def test_zero_optimizer_without_a_mesh_is_plain_adam(algo):
 
 
 @pytest.mark.parametrize("mode", ["lstm", "overlap"])
-def test_zero_composes_with_lstm_and_overlap(tmp_path, mode):
+def test_zero_composes_with_lstm_and_overlap(ranks, mode):
     """LSTM-PPO and the overlapped step with ZeRO on 2 ranks: bit for bit
     their replicated data-parallel twins from the same seed."""
-    kw = {"use_lstm": True, "lstm_size": 8} if mode == "lstm" else {"overlap": True}
-    job = {"kind": "zero_twins", "cfg": dict(horizon=8, epochs=2, num_minibatches=2), "kw": kw}
-    for o in run_ranks(tmp_path, job):
+    for o in ranks[f"twins_{mode}"][1]:
         assert o["chunk"] == (-(-sum(p.numel() for p in o[True].values()) // K),)
         assert all(torch.equal(o[True][n], o[False][n]) for n in o[False])
 
 
-def test_zero_ddpg_trainer_resumes_bit_for_bit(tmp_path):
+def test_zero_ddpg_trainer_resumes_bit_for_bit(ranks):
     """The trainer's full state holds the moments whole (the one-device
     layout); loaded into a fresh ZeRO trainer, each rank takes its chunk
     back, and both go on alike."""
-    job = {"kind": "ddpg_zero_resume",
-           "cfg": dict(rollout_steps=4, updates_per_iteration=2, batch_size=8, min_replay=8,
-                       replay_capacity=256, zero_optimizer=True)}
-    for o in run_ranks(tmp_path, job):
+    for o in ranks["ddpg_resume"][1]:
         assert o["updates"] == 6 and all(o["chunks_equal"])
         assert all(o["nets_equal_after_one_more"])
         assert o["whole_mu"]["head.weight"] == (6, 16)  # gathered whole

@@ -388,7 +388,16 @@ def hang(local):
     time.sleep(60)
 
 
+def jobs(job, mesh):
+    """Several jobs in one group, in order (a rank's start, its imports,
+    costs more than most jobs): {name: the job's outputs}, each on the mesh
+    of its own "shape", which every rank makes in the same order."""
+    return {name: KINDS[j["kind"]](j, pmesh.make_mesh(*j["shape"], device="cpu")
+                                   if "shape" in j else mesh)
+            for name, j in job["jobs"].items()}
+
+
 KINDS = {"collectives": collectives, "axes": axes, "ppo": ppo, "ddpg": ddpg, "trainer": trainer,
          "zero_adam": zero_adam, "tshard": tshard, "tp": tp,
          "ddpg_zero_resume": ddpg_zero_resume, "zero_twins": zero_twins,
-         "ddpg_relayout": ddpg_relayout}
+         "ddpg_relayout": ddpg_relayout, "jobs": jobs}

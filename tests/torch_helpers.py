@@ -12,6 +12,13 @@ import torch
 
 from surreal_tpu_torch.envs.cheetah import CheetahRun
 
+# One torch thread a test process. Tier-1 runs 6 pytest workers on 8
+# cores; at torch's default of one OpenMP thread a core, the workers'
+# threads spin against each other, and the port's test files took about
+# three times as long. Every tests/test_torch_*.py file that runs torch
+# imports this module, and pytest imports them all when it collects.
+torch.set_num_threads(1)
+
 
 # XLA's backend optimisation level 0 halves the reference programs' compile
 # time on the CPU (walker's step 5.3 -> 2.5 s, a manipulator step 11.4 ->
