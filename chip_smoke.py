@@ -5,6 +5,7 @@
     python3 chip_smoke.py --loss-sweep
     python3 chip_smoke.py --gae-timing [ROOT]
     python3 chip_smoke.py --gae-sweep
+    python3 chip_smoke.py --spans [ROOT]
     python3 chip_smoke.py --learn [DIR] [cheetah-run] [CLI FLAGS]
     python3 chip_smoke.py --dp
     python3 chip_smoke.py --axes
@@ -291,6 +292,8 @@ runs that one dtype alone).
 
 from __future__ import annotations
 
+import bisect
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -411,11 +414,12 @@ def phase_build():
                 print(f"build {source}: {line.strip()}")
 
 
-def device_events(fn) -> list[tuple[str, float]]:
-    """(name, device µs) of each device kernel that one call of `fn` runs,
-    under torch.profiler. Read from the profiler's raw events: building
-    its FunctionEvent tree (`prof.events()`) takes tens of µs of host time
-    an event, and a whole PPO iteration records ~10^6 of them."""
+def timeline(fn) -> tuple[list, list]:
+    """(device events, host events) of one call of `fn` under torch.profiler,
+    each (name, start ns, end ns, correlation id: a launch's and the device
+    work it queued share theirs). Read from the profiler's raw events:
+    building its FunctionEvent tree (`prof.events()`) takes tens of µs of
+    host time an event, and a whole PPO iteration records ~10^6 of them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -426,13 +430,21 @@ def device_events(fn) -> list[tuple[str, float]]:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        events = [(e.name(), e.duration_ns() * 1e-3)
-                  for e in prof.profiler.kineto_results.events()
-                  if e.device_type() == DeviceType.CUDA
-                  and not getattr(e, "is_hidden_event", lambda: False)()]
-        if events:
+        dev, host = [], []
+        for e in prof.profiler.kineto_results.events():
+            if not getattr(e, "is_hidden_event", lambda: False)():
+                item = (e.name(), e.start_ns(), e.start_ns() + e.duration_ns(),
+                        e.correlation_id())
+                (dev if e.device_type() == DeviceType.CUDA else host).append(item)
+        if dev:
             break
-    return events
+    return dev, host
+
+
+def device_events(fn) -> list[tuple[str, float]]:
+    """(name, device µs) of each device kernel that one call of `fn` runs,
+    under torch.profiler."""
+    return [(name, (end - start) * 1e-3) for name, start, end, _ in timeline(fn)[0]]
 
 
 def device_kernels(fn) -> list[str]:
@@ -2917,6 +2929,197 @@ def gae_timing(root: str) -> None:
     gae_at_shapes(root, returns, dev)
 
 
+SPAN_LAUNCH = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset")
+SPAN_COPIES = ("Memcpy HtoD", "Memcpy DtoH")
+SPAN_LEAVES = ("ppo.rollout.policy", "physics.dynamics", "physics.constraints", "env.reward_obs",
+               "env.reset", "ppo.rollout.done_check", "ppo.rollout.finish",
+               "ppo.update.advantages", "ppo.update.loss", "ppo.update.backward",
+               "ppo.update.optimizer", "ppo.update.finish")
+SPAN_PARENTS = ("ppo.rollout.step", "env.step", "env.physics", "ppo.update.minibatch")
+
+
+def innermost_segments(host: list) -> list[tuple[int, int, str]]:
+    """The time the spans among `host` cover, cut into (start, end, label)
+    by the innermost open span: a leaf span's name, or a span with spans
+    inside it as "<name> (self)"."""
+    spans = sorted(((s, e, n) for n, s, e, _ in host if n in SPAN_LEAVES + SPAN_PARENTS),
+                   key=lambda x: (x[0], -x[1]))
+    segs, stack, t = [], [], 0
+
+    def close(until):
+        nonlocal t
+        while stack and stack[-1][0] <= until:
+            end, name = stack.pop()
+            segs.append((t, end, name))
+            t = end
+
+    for s, e, name in spans:
+        close(s)
+        if stack:
+            segs.append((t, s, stack[-1][1]))
+        stack.append((e, name))
+        t = s
+    close(float("inf"))
+    return [(a, b, n if n in SPAN_LEAVES else f"{n} (self)") for a, b, n in segs if b > a]
+
+
+def label_at(t: int, segs: list, starts: list) -> str:
+    i = bisect.bisect_right(starts, t) - 1
+    return segs[i][2] if i >= 0 and t < segs[i][1] else "(no span)"
+
+
+def idle_by_span(dev: list, segs: list, starts: list) -> dict[str, float]:
+    """The device's idle time between its first and last event, in s, by
+    the innermost span open on the host while it lasted."""
+    out: dict[str, float] = {}
+    end = None
+    for _, s, e, _ in sorted(dev, key=lambda x: x[1]):
+        if end is not None and s > end:
+            left, a = s - end, end
+            i = max(bisect.bisect_right(starts, a) - 1, 0)
+            while i < len(segs) and segs[i][0] < s:
+                cut = min(segs[i][1], s) - max(segs[i][0], a)
+                if cut > 0:
+                    out[segs[i][2]] = out.get(segs[i][2], 0.0) + cut * 1e-9
+                    left -= cut
+                i += 1
+            out["(no span)"] = out.get("(no span)", 0.0) + left * 1e-9
+        end = e if end is None else max(end, e)
+    return out
+
+
+def by_span(dev: list, host: list, per: int) -> dict[str, dict]:
+    """Per innermost span label, over `per` steps: launches, host-device
+    copies, device ms (device work by the span of its launch), idle ms and
+    host ms."""
+    segs = innermost_segments(host)
+    starts = [a for a, _, _ in segs]
+    rows: dict[str, dict] = {}
+
+    def add(label, key, v):
+        row = rows.setdefault(label, dict.fromkeys(
+            ("launches", "copies", "device_ms", "idle_ms", "host_ms"), 0.0))
+        row[key] += v / per
+
+    launched = {}
+    for name, s, _, corr in host:
+        if name.startswith(SPAN_LAUNCH):
+            launched[corr] = label_at(s, segs, starts)
+            add(launched[corr], "launches", 1)
+    for name, s, e, corr in dev:
+        label = launched.get(corr) or label_at(s, segs, starts)
+        add(label, "device_ms", (e - s) * 1e-6)
+        if name.startswith(SPAN_COPIES):
+            add(label, "copies", 1)
+    for label, v in idle_by_span(dev, segs, starts).items():
+        add(label, "idle_ms", v * 1e3)
+    for a, b, label in segs:
+        add(label, "host_ms", (b - a) * 1e-6)
+    return {k: {n: round(v, 4) for n, v in row.items()}
+            for k, row in sorted(rows.items(), key=lambda kv: -kv[1]["idle_ms"])}
+
+
+def sync_sites(fn, root: str) -> dict[str, int]:
+    """The Python lines whose torch calls synchronised the host with the
+    card during one call of `fn` (`torch.cuda.set_sync_debug_mode`), and
+    how often."""
+    import warnings
+
+    sites: dict[str, int] = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.relpath(w.filename, os.path.abspath(root))}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return sites
+
+
+def span_profile(root: str) -> None:
+    """Phase 1, then PPO on cheetah-run from the package under `root`:
+    2,048 envs, (256, 256) tanh torsos, horizon 128, 4 epochs x 8
+    minibatches of 32,768 rows, the fused loss. After a warm-up iteration
+    and a timed one, PROFILED_STEPS rollout steps and one whole update
+    under torch.profiler, read by the innermost span open on the host:
+    launches (host runtime calls whose name starts with one of
+    SPAN_LAUNCH), host-device copies, device time and the device's idle
+    time, per rollout step and per minibatch step; the profiled rollout's
+    wall time per step; the Python lines of the rollout's synchronising
+    calls; and, where the package has `profiling.span`, a span's host cost
+    with no profiler running. A package without spans reads "(no span)"
+    throughout."""
+    sys.path.insert(0, os.path.abspath(root))
+    from surreal_tpu_torch.algos import ppo
+    from surreal_tpu_torch.ops import build
+    from surreal_tpu_torch.train import PPOTrainer
+    from surreal_tpu_torch.utils import profiling
+
+    phase_card()
+    print(f"package: {os.path.dirname(os.path.dirname(os.path.abspath(ppo.__file__)))}")
+    build.build_all()
+    t = PPOTrainer("cheetah-run", ppo.PPOConfig(num_minibatches=8, fused_loss=True),
+                   num_envs=2048, seed=0, hidden=(256, 256), device="cuda")
+    t.run(1, log_every=1 << 62)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.run(1, log_every=1 << 62)
+    torch.cuda.synchronize()
+    iteration_s = time.perf_counter() - t0
+    traj = ppo.rollout(t.cfg, t.env, t._flatten, t.state, t.env_state, t.obs, t.ep_ret,
+                       t.generator)[0]
+
+    def steps(n):
+        def run():
+            t.env_state, t.obs, t.ep_ret = ppo.rollout(
+                dataclasses.replace(t.cfg, horizon=n), t.env, t._flatten, t.state,
+                t.env_state, t.obs, t.ep_ret, t.generator)[1:4]
+        return run
+
+    sites = sync_sites(steps(2), root)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_dev, r_host = timeline(steps(PROFILED_STEPS))
+    rollout_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    u_dev, u_host = timeline(lambda: ppo.update(t.cfg, t.state, traj, t.generator))
+    update_wall = time.perf_counter() - t0
+    if not r_dev or not u_dev:
+        fail("the profiler saw no device event in the rollout or the update")
+    minibatches = t.cfg.epochs * t.cfg.num_minibatches
+    rollout_rows = by_span(r_dev, r_host, PROFILED_STEPS)
+    spans_per_iteration = (
+        sum(n in SPAN_LEAVES + SPAN_PARENTS for n, *_ in r_host) * t.cfg.horizon
+        / PROFILED_STEPS + sum(n in SPAN_LEAVES + SPAN_PARENTS for n, *_ in u_host))
+    out = {"phase": "spans", "root": root, "iteration_s": iteration_s,
+           "rollout_wall_s_per_step": rollout_wall / PROFILED_STEPS,
+           "update_wall_s": update_wall,
+           "kernels_per_step": len(r_dev) / PROFILED_STEPS,
+           "launches_in_step_spans_per_step": sum(
+               r["launches"] for k, r in rollout_rows.items()
+               if k not in ("ppo.rollout.finish", "(no span)")),
+           "spans_per_iteration": spans_per_iteration,
+           "rollout_idle_s": sum(r["idle_ms"] for r in rollout_rows.values())
+           * PROFILED_STEPS * 1e-3,
+           "rollout_by_span": rollout_rows,
+           "update_by_span_per_minibatch": by_span(u_dev, u_host, minibatches),
+           "sync_sites_per_step": {k: v / 2 for k, v in sites.items()},
+           "host_runtime_calls": collections.Counter(
+               n for n, *_ in r_host + u_host if n.startswith("cu"))}
+    if hasattr(profiling, "span"):
+        n = 200_000
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with profiling.span("test.off"):
+                pass
+        out["span_off_us"] = (time.perf_counter() - t0) / n * 1e6
+    print(json.dumps(out))
+
+
 def compile_variants(texts: dict[str, str]) -> dict:
     """Builds each source text into build/kernels/sweep/<name>.so with the
     package's nvcc flags, all nvcc processes at once, and loads them."""
@@ -4542,6 +4745,9 @@ def main():
         return
     if sys.argv[1:2] == ["--gae-sweep"]:
         gae_sweep()
+        return
+    if sys.argv[1:2] == ["--spans"]:
+        span_profile(sys.argv[2] if len(sys.argv) > 2 else os.path.dirname(__file__) or ".")
         return
     if sys.argv[1:2] == ["--dp"]:
         phase_card()

@@ -54,6 +54,7 @@ from surreal_tpu_torch.parallel.zero import (
     zero_adam_init,
 )
 from surreal_tpu_torch.utils import guards
+from surreal_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -223,37 +224,42 @@ def rollout(cfg: PPOConfig, env: Environment, flatten_obs: Callable,
                              if f.name != "next_value"}
     term_values = []
     for t in range(cfg.horizon):
-        mean, log_std, value = net(_norm(cfg, state, obs))
-        eps = None if noise is None else noise[t]
-        if eps is None and rows is not None:
-            lo, hi, total = rows
-            eps = torch.randn((total,) + mean.shape[1:], generator=generator,
-                              device=mean.device, dtype=mean.dtype)[lo:hi]
-        action = DiagGauss.sample(mean, log_std, eps, generator)
-        log_prob = DiagGauss.log_prob(mean, log_std, action)
-        env_state, ts = env.step(env_state, action, generator)
-        # The bootstrap target at `done` is V(terminal obs); it is computed
-        # only on steps where some env finished. The test costs one host
-        # sync per step, accepted here.
-        term_values.append(net(_norm(cfg, state, flatten_obs(ts.obs)))[2]
-                           if bool(ts.done.any()) else torch.zeros_like(value))
-        for k, x in (("obs", obs), ("action", action), ("log_prob", log_prob), ("mean", mean),
-                     ("log_std", log_std.expand_as(mean)), ("value", value),
-                     ("reward", ts.reward), ("discount", ts.discount), ("done", ts.done)):
-            cols[k].append(x)
-        ep_ret = ep_ret + ts.reward
-        done_f = ts.done.to(ep_ret.dtype)
-        done_sum = done_sum + done_f
-        done_ret = done_ret + done_f * ep_ret
-        ep_ret = ep_ret * (1.0 - done_f)
-        obs = flatten_obs(ts.carry_obs)
-    tr = {k: torch.stack(v) for k, v in cols.items()}
-    # next_value(t) = V(obs_{t+1}) except at done (the terminal value); one
-    # chunk-end forward on the final carry obs closes the sequence.
-    v_last = net(_norm(cfg, state, obs))[2]
-    next_value = torch.cat([tr["value"][1:], v_last[None]], 0)
-    next_value = torch.where(tr["done"], torch.stack(term_values), next_value)
-    traj = Trajectory(next_value=next_value, **tr)
+        with span("ppo.rollout.step"):
+            with span("ppo.rollout.policy"):
+                mean, log_std, value = net(_norm(cfg, state, obs))
+                eps = None if noise is None else noise[t]
+                if eps is None and rows is not None:
+                    lo, hi, total = rows
+                    eps = torch.randn((total,) + mean.shape[1:], generator=generator,
+                                      device=mean.device, dtype=mean.dtype)[lo:hi]
+                action = DiagGauss.sample(mean, log_std, eps, generator)
+                log_prob = DiagGauss.log_prob(mean, log_std, action)
+            env_state, ts = env.step(env_state, action, generator)
+            # The bootstrap target at `done` is V(terminal obs); it is computed
+            # only on steps where some env finished. The test costs one host
+            # sync per step, accepted here.
+            with span("ppo.rollout.done_check"):
+                term_values.append(net(_norm(cfg, state, flatten_obs(ts.obs)))[2]
+                                   if bool(ts.done.any()) else torch.zeros_like(value))
+            for k, x in (("obs", obs), ("action", action), ("log_prob", log_prob),
+                         ("mean", mean), ("log_std", log_std.expand_as(mean)),
+                         ("value", value), ("reward", ts.reward), ("discount", ts.discount),
+                         ("done", ts.done)):
+                cols[k].append(x)
+            ep_ret = ep_ret + ts.reward
+            done_f = ts.done.to(ep_ret.dtype)
+            done_sum = done_sum + done_f
+            done_ret = done_ret + done_f * ep_ret
+            ep_ret = ep_ret * (1.0 - done_f)
+            obs = flatten_obs(ts.carry_obs)
+    with span("ppo.rollout.finish"):
+        tr = {k: torch.stack(v) for k, v in cols.items()}
+        # next_value(t) = V(obs_{t+1}) except at done (the terminal value); one
+        # chunk-end forward on the final carry obs closes the sequence.
+        v_last = net(_norm(cfg, state, obs))[2]
+        next_value = torch.cat([tr["value"][1:], v_last[None]], 0)
+        next_value = torch.where(tr["done"], torch.stack(term_values), next_value)
+        traj = Trajectory(next_value=next_value, **tr)
     stats = {"episodes_done": done_sum.sum(), "episode_return_sum": done_ret.sum()}
     return traj, env_state, obs, ep_ret, stats
 
@@ -343,9 +349,10 @@ def apply_gradients(cfg: PPOConfig, state: PPOTrainState, loss: Tensor, lr: Tens
     network's parameters move in place. Returns the averaged gradient's
     norm."""
     names, params = zip(*state.net.named_parameters())
-    grads = dict(zip(names, pmean_flat(torch.autograd.grad(loss, params), axis)))
+    with span("ppo.update.backward"):
+        grads = dict(zip(names, pmean_flat(torch.autograd.grad(loss, params), axis)))
     sharded = tp.sharding_of(state.net)
-    with torch.no_grad():
+    with torch.no_grad(), span("ppo.update.optimizer"):
         if sharded is None:
             g_norm = global_norm(grads.values())
         else:
@@ -365,24 +372,25 @@ def finish_update(cfg: PPOConfig, state: PPOTrainState, raw_obs: Tensor, metrics
     minibatch's KL (its mean across `axis`'s ranks, so every rank decides
     alike), the Z-filter update from the rollout's raw observations, the
     step count and the publish-to-actors cadence."""
-    kl = pmean(metrics["kl"], axis)
-    hi, lo = kl > 2.0 * cfg.kl_target, kl < cfg.kl_target / 2.0
-    if cfg.objective == "adaptive_kl":
-        state.kl_beta = torch.where(
-            hi, state.kl_beta * cfg.lr_adapt_factor,
-            torch.where(lo, state.kl_beta / cfg.lr_adapt_factor, state.kl_beta))
-    if cfg.adapt_lr:
-        lr_scale = torch.where(
-            hi, state.lr_scale / cfg.lr_adapt_factor,
-            torch.where(lo, state.lr_scale * cfg.lr_adapt_factor, state.lr_scale))
-        state.lr_scale = torch.clamp(lr_scale, cfg.lr_min_scale, cfg.lr_max_scale)
-    if cfg.use_zfilter:
-        state.zfilter = zfilter_update(state.zfilter, raw_obs, axis)
-    state.update_step += 1
-    if cfg.publish_every > 1:
-        param_sync_refresh(state.psync, state.net, state.update_step, cfg.publish_every)
-    metrics["lr_scale"] = state.lr_scale
-    metrics["kl_beta"] = state.kl_beta
+    with span("ppo.update.finish"):
+        kl = pmean(metrics["kl"], axis)
+        hi, lo = kl > 2.0 * cfg.kl_target, kl < cfg.kl_target / 2.0
+        if cfg.objective == "adaptive_kl":
+            state.kl_beta = torch.where(
+                hi, state.kl_beta * cfg.lr_adapt_factor,
+                torch.where(lo, state.kl_beta / cfg.lr_adapt_factor, state.kl_beta))
+        if cfg.adapt_lr:
+            lr_scale = torch.where(
+                hi, state.lr_scale / cfg.lr_adapt_factor,
+                torch.where(lo, state.lr_scale * cfg.lr_adapt_factor, state.lr_scale))
+            state.lr_scale = torch.clamp(lr_scale, cfg.lr_min_scale, cfg.lr_max_scale)
+        if cfg.use_zfilter:
+            state.zfilter = zfilter_update(state.zfilter, raw_obs, axis)
+        state.update_step += 1
+        if cfg.publish_every > 1:
+            param_sync_refresh(state.psync, state.net, state.update_step, cfg.publish_every)
+        metrics["lr_scale"] = state.lr_scale
+        metrics["kl_beta"] = state.kl_beta
 
 
 def normalize_advantages(adv: Tensor, axis=None) -> Tensor:
@@ -402,7 +410,7 @@ def update(cfg: PPOConfig, state: PPOTrainState, traj: Trajectory,
     rank's share of the batch. Returns (state, metrics)."""
     T, B = traj.reward.shape
     net = state.net
-    with torch.no_grad():
+    with torch.no_grad(), span("ppo.update.advantages"):
         obs = _norm(cfg, state, traj.obs)
         if cfg.time_shards > 1:  # GAE with its reverse scan split over the time axis
             adv = replicated_reverse_scan(*gae_delta_coef(
@@ -434,9 +442,11 @@ def update(cfg: PPOConfig, state: PPOTrainState, traj: Trajectory,
             N, generator=generator, device=generator.device)
         idxs = perm[: mb_size * cfg.num_minibatches].reshape(cfg.num_minibatches, mb_size)
         for idx in idxs:
-            mb = tuple(x[idx] for x in flat)
-            loss, metrics = _loss_fn(cfg, net, mb, state.kl_beta, ent_coef)
-            metrics["grad_norm"] = apply_gradients(cfg, state, loss, lr, axis)
+            with span("ppo.update.minibatch"):
+                with span("ppo.update.loss"):
+                    mb = tuple(x[idx] for x in flat)
+                    loss, metrics = _loss_fn(cfg, net, mb, state.kl_beta, ent_coef)
+                metrics["grad_norm"] = apply_gradients(cfg, state, loss, lr, axis)
     finish_update(cfg, state, traj.obs, metrics, axis)
     return state, metrics
 

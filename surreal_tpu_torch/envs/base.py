@@ -26,6 +26,7 @@ from typing import Any, Mapping
 import torch
 
 from surreal_tpu_torch.envs.physics.model import HINGE, PlanarModel
+from surreal_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -133,33 +134,37 @@ class Environment:
              reset_draw: Mapping[str, Tensor] | None = None) -> tuple[EnvState, Timestep]:
         """Steps physics; auto-resets the envs whose episode ended (the
         returned Timestep carries their terminal obs and reward)."""
-        q, qd = self._physics_step(state.q, state.qd, action)
-        t = state.t + 1
-        # Divergence guard: a diverged env (non-finite or |x| >= 1e8) scores
-        # reward 0, ends its episode and exposes the fresh episode's obs.
-        def finite(x):
-            return torch.isfinite(x).all(-1) & (torch.amax(torch.abs(x), -1) < 1e8)
+        with span("env.step"):
+            with span("env.physics"):
+                q, qd = self._physics_step(state.q, state.qd, action)
+            with span("env.reward_obs"):
+                t = state.t + 1
+                # Divergence guard: a diverged env (non-finite or |x| >= 1e8)
+                # scores reward 0, ends its episode and exposes the fresh
+                # episode's obs.
+                def finite(x):
+                    return torch.isfinite(x).all(-1) & (torch.amax(torch.abs(x), -1) < 1e8)
 
-        diverged = ~(finite(q) & finite(qd))
-        q = torch.where(torch.isfinite(q), q, torch.zeros_like(q))
-        qd = torch.where(torch.isfinite(qd), qd, torch.zeros_like(qd))
-        reward = self._reward(q, qd, action)
-        obs = self._obs(q, qd)
-        done = (t >= self.episode_steps) | diverged
-        reward = torch.where(diverged, torch.zeros_like(reward), reward)
-        # Auto-reset: the fresh state is computed for every env and selected
-        # by `done`, as in the reference.
-        if reset_draw is None:
-            reset_draw = self.draw_reset(q.shape[0], generator)
-        q0, qd0 = self._init(reset_draw)
-        new_state = EnvState(q=_pick(done, q0, q), qd=_pick(done, qd0, qd),
-                             t=torch.where(done, torch.zeros_like(t), t))
-        obs0 = self._obs(q0, qd0)
-        carry_obs = {k: _pick(done, obs0[k], obs[k]) for k in obs}
-        obs = {k: _pick(diverged, obs0[k], obs[k]) for k in obs}
-        ts = Timestep(obs=obs, carry_obs=carry_obs, reward=reward,
-                      discount=torch.ones_like(reward), done=done)
-        return new_state, ts
+                diverged = ~(finite(q) & finite(qd))
+                q = torch.where(torch.isfinite(q), q, torch.zeros_like(q))
+                qd = torch.where(torch.isfinite(qd), qd, torch.zeros_like(qd))
+                reward = self._reward(q, qd, action)
+                obs = self._obs(q, qd)
+                done = (t >= self.episode_steps) | diverged
+                reward = torch.where(diverged, torch.zeros_like(reward), reward)
+            # Auto-reset: the fresh state is computed for every env and
+            # selected by `done`, as in the reference.
+            with span("env.reset"):
+                if reset_draw is None:
+                    reset_draw = self.draw_reset(q.shape[0], generator)
+                q0, qd0 = self._init(reset_draw)
+                new_state = EnvState(q=_pick(done, q0, q), qd=_pick(done, qd0, qd),
+                                     t=torch.where(done, torch.zeros_like(t), t))
+                obs0 = self._obs(q0, qd0)
+                carry_obs = {k: _pick(done, obs0[k], obs[k]) for k in obs}
+                obs = {k: _pick(diverged, obs0[k], obs[k]) for k in obs}
+            return new_state, Timestep(obs=obs, carry_obs=carry_obs, reward=reward,
+                                       discount=torch.ones_like(reward), done=done)
 
 
 def _pick(mask: Tensor, a: Tensor, b: Tensor) -> Tensor:

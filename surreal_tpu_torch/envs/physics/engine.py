@@ -28,6 +28,7 @@ import torch
 
 from surreal_tpu_torch.envs.physics.linalg import inv_spd, solve_spd
 from surreal_tpu_torch.envs.physics.model import HINGE, SLIDE, PlanarModel
+from surreal_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 FK = tuple[Tensor, Tensor, Tensor, Tensor]
@@ -746,23 +747,26 @@ def step_euler(m: PlanarModel, q: Tensor, qd: Tensor, ctrl: Tensor, h: float | N
     through (M + hD)⁻¹ (MuJoCo's Euler semantics), else through M⁻¹. With
     `return_impulses`, also returns the normal contact impulses."""
     h = m.dt if h is None else h
-    ctrl = ctrl.to(q.dtype)
-    D = m.tensor("damping", q)
-    fkd, fkd_dot = fk_dofs_dot(m, q, qd)
-    M = mass_matrix(m, q, fkd=fkd)
-    f = smooth_forces(m, q, qd, ctrl, fkd=fkd, fkd_dot=fkd_dot) - D * qd
-    if m.implicit_impulse:
-        M_inv = inv_spd(M + h * torch.diag(D))
-        qacc = (M_inv @ f[..., None])[..., 0]
-    else:
-        M_inv = inv_spd(M)
-        qacc = solve_spd(M + h * torch.diag(D), f)
-    v_star = qd + h * qacc
-    if return_impulses:
-        qd_new, imp = constraint_project_impulses(m, q, v_star, M_inv, h, fkd=fkd)
-        return q + h * qd_new, qd_new, imp
-    qd_new = constraint_project(m, q, v_star, M_inv, h, fkd=fkd)
-    return q + h * qd_new, qd_new
+    with span("physics.dynamics"):
+        ctrl = ctrl.to(q.dtype)
+        D = m.tensor("damping", q)
+        fkd, fkd_dot = fk_dofs_dot(m, q, qd)
+        M = mass_matrix(m, q, fkd=fkd)
+        f = smooth_forces(m, q, qd, ctrl, fkd=fkd, fkd_dot=fkd_dot) - D * qd
+        if m.implicit_impulse:
+            M_inv = inv_spd(M + h * torch.diag(D))
+            qacc = (M_inv @ f[..., None])[..., 0]
+        else:
+            M_inv = inv_spd(M)
+            qacc = solve_spd(M + h * torch.diag(D), f)
+        v_star = qd + h * qacc
+    with span("physics.constraints"):
+        if return_impulses:
+            qd_new, imp = constraint_project_impulses(m, q, v_star, M_inv, h, fkd=fkd)
+        else:
+            qd_new, imp = constraint_project(m, q, v_star, M_inv, h, fkd=fkd), None
+    q_new = q + h * qd_new
+    return (q_new, qd_new, imp) if return_impulses else (q_new, qd_new)
 
 
 def step_rk4(m: PlanarModel, q: Tensor, qd: Tensor, ctrl: Tensor, h: float | None = None):
@@ -771,7 +775,8 @@ def step_rk4(m: PlanarModel, q: Tensor, qd: Tensor, ctrl: Tensor, h: float | Non
     ctrl = ctrl.to(q.dtype)
 
     def deriv(qq, vv):
-        return vv, forward_explicit(m, qq, vv, ctrl)
+        with span("physics.dynamics"):
+            return vv, forward_explicit(m, qq, vv, ctrl)
 
     k1 = deriv(q, qd)
     k2 = deriv(q + 0.5 * h * k1[0], qd + 0.5 * h * k1[1])
@@ -780,9 +785,11 @@ def step_rk4(m: PlanarModel, q: Tensor, qd: Tensor, ctrl: Tensor, h: float | Non
     q_new = q + (h / 6.0) * (k1[0] + 2 * k2[0] + 2 * k3[0] + k4[0])
     qd_new = qd + (h / 6.0) * (k1[1] + 2 * k2[1] + 2 * k3[1] + k4[1])
     if has_constraints(m):
-        fkd = fk_dofs(m, q_new)
-        M_inv = inv_spd(mass_matrix(m, q_new, fkd=fkd))
-        qd_new = constraint_project(m, q_new, qd_new, M_inv, h, fkd=fkd)
+        with span("physics.dynamics"):
+            fkd = fk_dofs(m, q_new)
+            M_inv = inv_spd(mass_matrix(m, q_new, fkd=fkd))
+        with span("physics.constraints"):
+            qd_new = constraint_project(m, q_new, qd_new, M_inv, h, fkd=fkd)
     return q_new, qd_new
 
 

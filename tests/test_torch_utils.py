@@ -3,6 +3,7 @@ against the reference's: the trackers on the same count sequences and the
 same clock; the event file read back by tensorboard's own loader to the
 (tag, step, value) triples the reference's MetricsWriter writes."""
 
+import json
 import logging
 import os
 import time
@@ -130,8 +131,11 @@ def test_profiling_trace_and_memory_stats(tmp_path):
     import torch
 
     with profiling.trace(str(tmp_path / "tb")):
-        torch.ones(64).sum()
+        with profiling.span("test.block"):
+            torch.ones(64).sum()
     (name,) = os.listdir(tmp_path / "tb")
     assert name.startswith("trace-") and name.endswith(".json")
-    assert (tmp_path / "tb" / name).stat().st_size > 0
+    with open(tmp_path / "tb" / name) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"test.block", "aten::sum"} <= names
     assert profiling.device_memory_stats() == {}  # no card here
