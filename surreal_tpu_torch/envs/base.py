@@ -19,6 +19,7 @@ reference's draws, recomputed from its keys, that way).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import os
 from typing import Any, Mapping
@@ -133,38 +134,162 @@ class Environment:
     def step(self, state: EnvState, action: Tensor, generator: torch.Generator | None = None,
              reset_draw: Mapping[str, Tensor] | None = None) -> tuple[EnvState, Timestep]:
         """Steps physics; auto-resets the envs whose episode ended (the
-        returned Timestep carries their terminal obs and reward)."""
-        with span("env.step"):
-            with span("env.physics"):
-                q, qd = self._physics_step(state.q, state.qd, action)
-            with span("env.reward_obs"):
-                t = state.t + 1
-                # Divergence guard: a diverged env (non-finite or |x| >= 1e8)
-                # scores reward 0, ends its episode and exposes the fresh
-                # episode's obs.
-                def finite(x):
-                    return torch.isfinite(x).all(-1) & (torch.amax(torch.abs(x), -1) < 1e8)
+        returned Timestep carries their terminal obs and reward).
 
-                diverged = ~(finite(q) & finite(qd))
-                q = torch.where(torch.isfinite(q), q, torch.zeros_like(q))
-                qd = torch.where(torch.isfinite(qd), qd, torch.zeros_like(qd))
-                reward = self._reward(q, qd, action)
-                obs = self._obs(q, qd)
-                done = (t >= self.episode_steps) | diverged
-                reward = torch.where(diverged, torch.zeros_like(reward), reward)
-            # Auto-reset: the fresh state is computed for every env and
-            # selected by `done`, as in the reference.
-            with span("env.reset"):
-                if reset_draw is None:
-                    reset_draw = self.draw_reset(q.shape[0], generator)
-                q0, qd0 = self._init(reset_draw)
-                new_state = EnvState(q=_pick(done, q0, q), qd=_pick(done, qd0, qd),
-                                     t=torch.where(done, torch.zeros_like(t), t))
-                obs0 = self._obs(q0, qd0)
-                carry_obs = {k: _pick(done, obs0[k], obs[k]) for k in obs}
-                obs = {k: _pick(diverged, obs0[k], obs[k]) for k in obs}
-            return new_state, Timestep(obs=obs, carry_obs=carry_obs, reward=reward,
-                                       discount=torch.ones_like(reward), done=done)
+        On a CUDA card, with no injected draw and no input that requires
+        grad, the step replays CUDA graphs captured at the first call of its
+        input signature (`_StepGraphs`); otherwise, and on the CPU, it runs
+        op by op."""
+        with span("env.step"):
+            if reset_draw is None and _graphable(state, action):
+                return self._step_graphs(state, action, generator).step(state, action)
+            return self._step_ops(state, action, generator, reset_draw)
+
+    def _step_ops(self, state: EnvState, action: Tensor, generator: torch.Generator | None,
+                  reset_draw: Mapping[str, Tensor] | None) -> tuple[EnvState, Timestep]:
+        """The step op by op."""
+        with span("env.physics"):
+            q, qd = self._physics_step(state.q, state.qd, action)
+        with span("env.reward_obs"):
+            q, qd, t, reward, obs, done, diverged = self._reward_obs(q, qd, state.t, action)
+        with span("env.reset"):
+            if reset_draw is None:
+                reset_draw = self.draw_reset(q.shape[0], generator)
+            new_state, obs, carry_obs = self._auto_reset(q, qd, t, obs, done, diverged,
+                                                         reset_draw)
+        return new_state, Timestep(obs=obs, carry_obs=carry_obs, reward=reward,
+                                   discount=torch.ones_like(reward), done=done)
+
+    def _reward_obs(self, q: Tensor, qd: Tensor, t: Tensor, action: Tensor):
+        """(q, qd, t, reward, obs, done, diverged) after the physics."""
+        t = t + 1
+        # Divergence guard: a diverged env (non-finite or |x| >= 1e8)
+        # scores reward 0, ends its episode and exposes the fresh
+        # episode's obs.
+        def finite(x):
+            return torch.isfinite(x).all(-1) & (torch.amax(torch.abs(x), -1) < 1e8)
+
+        diverged = ~(finite(q) & finite(qd))
+        q = torch.where(torch.isfinite(q), q, torch.zeros_like(q))
+        qd = torch.where(torch.isfinite(qd), qd, torch.zeros_like(qd))
+        reward = self._reward(q, qd, action)
+        obs = self._obs(q, qd)
+        done = (t >= self.episode_steps) | diverged
+        reward = torch.where(diverged, torch.zeros_like(reward), reward)
+        return q, qd, t, reward, obs, done, diverged
+
+    def _auto_reset(self, q, qd, t, obs, done, diverged, reset_draw):
+        """(new state, obs, carry obs): the fresh state is computed for
+        every env and selected by `done`, as in the reference."""
+        q0, qd0 = self._init(reset_draw)
+        new_state = EnvState(q=_pick(done, q0, q), qd=_pick(done, qd0, qd),
+                             t=torch.where(done, torch.zeros_like(t), t))
+        obs0 = self._obs(q0, qd0)
+        carry_obs = {k: _pick(done, obs0[k], obs[k]) for k in obs}
+        obs = {k: _pick(diverged, obs0[k], obs[k]) for k in obs}
+        return new_state, obs, carry_obs
+
+    def _step_graphs(self, state: EnvState, action: Tensor,
+                     generator: torch.Generator | None) -> _StepGraphs:
+        """This env's graphs for the step's input signature, captured at its
+        first call. The generator and `episode_steps` are part of the
+        signature: a graph holds both as they were at its capture."""
+        key = (state.q.shape, state.qd.shape, state.t.shape, state.q.dtype, state.t.dtype,
+               state.q.device, action.shape, action.dtype, generator, self.episode_steps)
+        graphs = self.__dict__.setdefault("_graphs", {})
+        if key not in graphs:
+            graphs[key] = _StepGraphs(self, state, action, generator)
+        return graphs[key]
+
+
+def _graphable(state: EnvState, action: Tensor) -> bool:
+    """The step may replay CUDA graphs: its tensors are on a card and none
+    requires grad."""
+    return state.q.is_cuda and not (state.q.requires_grad or state.qd.requires_grad
+                                    or action.requires_grad)
+
+
+class _StepGraphs:
+    """An env step of one input signature as three CUDA graphs, one a span
+    (`env.physics`, `env.reward_obs`, `env.reset`), sharing one memory pool
+    (safe because they always replay in the order they were captured).
+
+    Built at the signature's first call: one op-by-op step on the capture
+    stream first (it fills the model's tensor caches, the allocator's pool
+    and cuBLAS's workspace), the generator's state put back after it, then
+    the captures. The reset graph draws from the step's generator (the
+    default CUDA generator for None), so a replay advances it as the
+    op-by-op step does. A call copies its inputs into the graphs' static
+    inputs, replays the three graphs, and returns clones of the outputs:
+    the graphs pack them into one buffer a dtype, so a call clones three,
+    and what it returns is left as it is by the next replay."""
+
+    def __init__(self, env: Environment, state: EnvState, action: Tensor,
+                 generator: torch.Generator | None):
+        dev = state.q.device
+        self.q, self.qd, self.t, self.action = (
+            x.clone() for x in (state.q, state.qd, state.t, action))
+        rng = generator if generator is not None else torch.cuda.default_generators[dev.index]
+        self.graphs = [torch.cuda.CUDAGraph() for _ in range(3)]
+        if generator is not None:
+            self.graphs[2].register_generator_state(generator)
+        pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            saved = rng.get_state()
+            with torch.cuda.stream(stream):
+                env._step_ops(EnvState(self.q, self.qd, self.t), self.action, generator, None)
+            rng.set_state(saved)
+
+            def capture(i):
+                return torch.cuda.graph(self.graphs[i], pool=pool, stream=stream,
+                                        capture_error_mode="thread_local")
+
+            with capture(0):
+                q, qd = env._physics_step(self.q, self.qd, self.action)
+            with capture(1):
+                q, qd, t, reward, obs, done, diverged = env._reward_obs(q, qd, self.t,
+                                                                        self.action)
+            with capture(2):
+                draw = env.draw_reset(q.shape[0], generator)
+                new_state, obs, carry_obs = env._auto_reset(q, qd, t, obs, done, diverged, draw)
+                outs = [("state", "q", new_state.q), ("state", "qd", new_state.qd),
+                        ("state", "t", new_state.t), ("ts", "reward", reward),
+                        ("ts", "discount", torch.ones_like(reward)), ("ts", "done", done),
+                        *[("obs", k, v) for k, v in obs.items()],
+                        *[("carry_obs", k, v) for k, v in carry_obs.items()]]
+                by_dtype: dict[torch.dtype, list] = {}
+                for part, name, v in outs:
+                    by_dtype.setdefault(v.dtype, []).append((part, name, v))
+                self.buffers = [torch.cat([v.reshape(-1) for _, _, v in group])
+                                for group in by_dtype.values()]
+            torch.cuda.current_stream().wait_stream(stream)
+        # (part, name, start, end, shape) of each output in its dtype's buffer
+        self.layouts = []
+        for group in by_dtype.values():
+            ends = list(itertools.accumulate(v.numel() for _, _, v in group))
+            self.layouts.append([(part, name, end - v.numel(), end, v.shape)
+                                 for (part, name, v), end in zip(group, ends)])
+
+    def step(self, state: EnvState, action: Tensor) -> tuple[EnvState, Timestep]:
+        with span("env.physics"):
+            self.q.copy_(state.q)
+            self.qd.copy_(state.qd)
+            self.action.copy_(action)
+            self.graphs[0].replay()
+        with span("env.reward_obs"):
+            self.t.copy_(state.t)
+            self.graphs[1].replay()
+        with span("env.reset"):
+            self.graphs[2].replay()
+        out: dict[str, dict[str, Tensor]] = {"state": {}, "ts": {}, "obs": {}, "carry_obs": {}}
+        for buf, layout in zip(self.buffers, self.layouts):
+            copy = buf.clone()
+            for part, name, start, end, shape in layout:
+                out[part][name] = copy[start:end].view(shape)
+        return EnvState(**out["state"]), Timestep(obs=out["obs"], carry_obs=out["carry_obs"],
+                                                  **out["ts"])
 
 
 def _pick(mask: Tensor, a: Tensor, b: Tensor) -> Tensor:

@@ -95,13 +95,14 @@ class Finger(base.Environment):
         fkd = engine.fk_dofs(m, q_phys)
         pos, ang, _, _ = fkd
         p0w, p1w = engine._geom_segments(m, q_phys, fkd)
-        ia = np.asarray(m.pair_geoms[self._tip_pairs, 0])
-        ib = np.asarray(m.pair_geoms[self._tip_pairs, 1])
+        tips = engine._index(m, "finger_tip_pairs", q_phys, lambda: self._tip_pairs)
+        ia, ib = (engine._index(m, f"finger_tip_geom_{s}", q_phys,
+                                lambda s=s: m.pair_geoms[self._tip_pairs, s]) for s in (0, 1))
         c_a, c_b = engine._seg_seg_closest(p0w[:, ia], p1w[:, ia], p0w[:, ib], p1w[:, ib])
         mid = 0.5 * (c_a + c_b)
         u = engine._rot(-ang[:, _DISTAL_BODY, None], mid - pos[:, _DISTAL_BODY, None])
         is_top = (u[..., 0] > 0).to(q_phys.dtype)
-        force = imp["pair"][:, self._tip_pairs] / _CTRL_DT
+        force = imp["pair"][:, tips] / _CTRL_DT
         return torch.stack([torch.sum(force * is_top, -1), torch.sum(force * (1 - is_top), -1)],
                            -1)
 

@@ -67,7 +67,9 @@ class Hopper(base.Environment):
     def _touch(self, q):
         m = self.model
         J, depth = engine._contact_kinematics(m, q)
-        M_inv = torch.linalg.inv(engine.mass_matrix(m, q))
+        # inv_ex: `inv`'s arithmetic without its check of the info, a host
+        # sync that a CUDA graph cannot capture (M is SPD)
+        M_inv = torch.linalg.inv_ex(engine.mass_matrix(m, q)).inverse
         Jn = J[:, :, 1, :]
         w = torch.clamp(torch.einsum("ncv,nvu,ncu->nc", Jn, M_inv, Jn), min=1e-9)
         force = torch.clamp(depth, min=0.0) / (w * m.contact_timeconst**2)

@@ -122,6 +122,12 @@ class Manipulator(base.Environment):
                 "r": u(0.0, 1.0), "ox": u(-0.5, 0.5), "oz": u(0.0, 0.7),
                 "oa": u(0.0, 2 * math.pi), "vx": u(-5.0, 5.0)}
 
+    def _index(self, which: str, like: torch.Tensor) -> torch.Tensor:
+        """The arm's ("arm") or the prop's ("obj") joint indices on `like`'s
+        device, cached."""
+        idx = {"arm": self._arm_idx, "obj": self._obj_idx}[which]
+        return engine._index(self.model, f"manip_{which}_idx", like, lambda: idx)
+
     def _candidates(self, draw):
         """(q (n, 11), qd (n, 11), target (n, 3)) of n = B·K candidates."""
         m = self.model
@@ -134,8 +140,7 @@ class Manipulator(base.Environment):
                              -math.pi + u * (2 * math.pi))
         angles = angles.clone()
         angles[:, self._finger_slot] = angles[:, self._thumb_slot]
-        arm_idx = torch.as_tensor(self._arm_idx, device=u.device)
-        q_arm = u.new_zeros(n, _NV).index_copy(1, arm_idx, angles)
+        q_arm = u.new_zeros(n, _NV).index_copy(1, self._index("arm", u), angles)
         pos, ang = engine.fk(m, q_arm)
         grasp_w = pos[:, self._hand_b] + engine._rot(
             ang[:, self._hand_b], m.tensor("manip_grasp", u, lambda: self._grasp_local))
@@ -150,8 +155,7 @@ class Manipulator(base.Environment):
         oz = torch.where(in_hand, grasp_w[:, 1], torch.where(in_target, tz, d["oz"]))
         oa = torch.where(in_hand, angle_ih, torch.where(in_target, ta, d["oa"]))
         vx = torch.where(in_hand | in_target, torch.zeros_like(r), d["vx"])
-        obj_idx = torch.as_tensor(self._obj_idx, device=u.device)
-        q = q_arm.index_copy(1, obj_idx, torch.stack([ox, oz, oa], -1))
+        q = q_arm.index_copy(1, self._index("obj", u), torch.stack([ox, oz, oa], -1))
         qd = u.new_zeros(n, _NV)
         qd[:, int(self._obj_idx[0])] = vx
         return q, qd, torch.stack([tx, tz, ta], -1)
@@ -178,7 +182,7 @@ class Manipulator(base.Environment):
 
     def _obs(self, q, qd):
         q_phys, target, touch = q[:, :_NV], q[:, _NV : _NV + 3], q[:, _NV + 3 :]
-        arm_q = q_phys[:, self._arm_idx]
+        arm_q = q_phys[:, self._index("arm", q)]
         pos, ang = engine.fk(self.model, q_phys)
 
         def pose4(b):
@@ -189,11 +193,11 @@ class Manipulator(base.Environment):
         ta = target[:, 2]
         return {
             "arm_pos": torch.stack([torch.sin(arm_q), torch.cos(arm_q)], -1).reshape(-1, 16),
-            "arm_vel": qd[:, self._arm_idx],
+            "arm_vel": qd[:, self._index("arm", q)],
             "touch": touch,
             "hand_pos": pose4(self._hand_b),
             "object_pos": pose4(self._prop_b),
-            "object_vel": qd[:, self._obj_idx],
+            "object_vel": qd[:, self._index("obj", q)],
             "target_pos": torch.stack(
                 [target[:, 0], target[:, 1], torch.cos(ta / 2), torch.sin(ta / 2)], -1),
         }

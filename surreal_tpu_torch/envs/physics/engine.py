@@ -4,8 +4,10 @@ surreal_tpu/envs/physics/engine.py).
 Every function takes a batch of states: q, qd (B, nv), ctrl (B, nu). The
 reference writes one env and `vmap`s it; here the batch dimension is
 written out. The per-body and per-dof loops are unrolled in Python as in
-the reference, so an env step is many small launches on the card (the
-rollout is launch-bound; CUDA graphs are the planned remedy).
+the reference, so an env step is many small launches on the card. No
+function copies from the host: every constant and index comes from the
+model's device cache (`PlanarModel.tensor`), so that `Environment.step`
+can capture a step in CUDA graphs and replay it with one launch a span.
 
 Physics runs in full float32: `device.resolve` turns TF32 off, the
 counterpart of the reference's `_highest_precision`.
@@ -150,13 +152,19 @@ def _is_hinge(m: PlanarModel) -> np.ndarray:
     return np.asarray([t == HINGE for t in m.dof_type])
 
 
-def point_jacobians(m: PlanarModel, q: Tensor, points_body, point_bodies,
+def _index(m: PlanarModel, name: str, like: Tensor, make=None) -> Tensor:
+    """The model's index array `name` (or `make()`) as an int64 tensor on
+    `like`'s device, converted once and cached."""
+    return m.tensor(name, like, make, dtype=torch.long)
+
+
+def point_jacobians(m: PlanarModel, q: Tensor, points_body, pb: Tensor,
                     fkd: FK | None = None):
     """World positions and Jacobians of material points. points_body is
-    (P, 2) or (B, P, 2) in body coordinates, point_bodies (P,) owning body
-    indices. Returns (points_world (B, P, 2), J (B, P, 2, nv), pos, ang)."""
+    (P, 2) or (B, P, 2) in body coordinates, pb (P,) the owning bodies'
+    indices (int64, on q's device). Returns (points_world (B, P, 2),
+    J (B, P, 2, nv), pos, ang)."""
     pos, ang, danchor, daxis = fkd if fkd is not None else fk_dofs(m, q)
-    pb = torch.as_tensor(np.asarray(point_bodies), device=q.device)
     pts_w = pos[:, pb] + _rot(ang[:, pb], points_body)
     sign = m.tensor("hinge_sign", q, lambda: _hinge_sign(m))
     is_hinge = m.tensor("is_hinge", q, lambda: _is_hinge(m)).bool()
@@ -169,6 +177,10 @@ def point_jacobians(m: PlanarModel, q: Tensor, points_body, point_bodies,
     return pts_w, J.transpose(2, 3), pos, ang
 
 
+def _all_bodies(m: PlanarModel, q: Tensor) -> Tensor:
+    return _index(m, "all_bodies", q, lambda: np.arange(m.nb))
+
+
 def com_positions(m: PlanarModel, q: Tensor) -> Tensor:
     """World COM of each body (B, nb, 2)."""
     pos, ang = fk(m, q)
@@ -177,8 +189,7 @@ def com_positions(m: PlanarModel, q: Tensor) -> Tensor:
 
 def mass_matrix(m: PlanarModel, q: Tensor, fkd: FK | None = None) -> Tensor:
     """Joint-space inertia M(q) = Σ_b m_b J_vᵀJ_v + I_b J_ωᵀJ_ω + armature."""
-    nb = m.nb
-    _, Jv, _, _ = point_jacobians(m, q, m.tensor("com", q), np.arange(nb), fkd=fkd)
+    _, Jv, _, _ = point_jacobians(m, q, m.tensor("com", q), _all_bodies(m, q), fkd=fkd)
     mass = m.tensor("mass", q)
     M = torch.einsum("b,nbcj,nbck->njk", mass, Jv, Jv)
 
@@ -197,7 +208,7 @@ def bias_forces(m: PlanarModel, q: Tensor, qd: Tensor, fkd: FK | None = None,
     reference's analytic Newton-Euler assembly."""
     if fkd is None or fkd_dot is None:
         fkd, fkd_dot = fk_dofs_dot(m, q, qd)
-    _, Jv, _, _ = point_jacobians(m, q, m.tensor("com", q), np.arange(m.nb), fkd=fkd)
+    _, Jv, _, _ = point_jacobians(m, q, m.tensor("com", q), _all_bodies(m, q), fkd=fkd)
     _, _, danchor_dot, daxis_dot = fkd_dot
     xdot = torch.einsum("nbcv,nv->nbc", Jv, qd)
     sign = m.tensor("hinge_sign", q, lambda: _hinge_sign(m))
@@ -288,7 +299,7 @@ def bias_forces_autodiff(m: PlanarModel, q: Tensor, qd: Tensor) -> Tensor:
 def _contact_kinematics(m: PlanarModel, q: Tensor, fkd: FK | None = None):
     """(J (B, ncon, 2, nv), depth (B, ncon)) of the lowest point of each
     contact sphere against the ground plane z = 0."""
-    cb = np.asarray(m.con_body)
+    cb = _index(m, "con_body", q)
     pos, ang, danchor, daxis = fkd if fkd is not None else fk_dofs(m, q)
     down = m.tensor("con_down", q,
                     lambda: np.stack([np.zeros(m.ncon), -np.float32(m.con_radius)], -1))
@@ -327,7 +338,7 @@ def _seg_seg_closest(p1, q1, p2, q2, eps: float = 1e-12):
 def _geom_segments(m: PlanarModel, q: Tensor, fkd: FK):
     """World end points (B, ng, 2) of every collision geom's segment."""
     pos, ang, _, _ = fkd
-    gb = np.asarray(m.geom_body)
+    gb = _index(m, "geom_body", q)
     p0_w = pos[:, gb] + _rot(ang[:, gb], m.tensor("geom_p0", q))
     p1_w = pos[:, gb] + _rot(ang[:, gb], m.tensor("geom_p1", q))
     return p0_w, p1_w
@@ -340,8 +351,8 @@ def _pair_kinematics(m: PlanarModel, q: Tensor, fkd: FK | None = None):
     fkd = fk_dofs(m, q) if fkd is None else fkd
     pos, ang, _, _ = fkd
     p0_w, p1_w = _geom_segments(m, q, fkd)
-    ia = np.asarray(m.pair_geoms[:, 0])
-    ib = np.asarray(m.pair_geoms[:, 1])
+    ia = _index(m, "pair_geom_a", q, lambda: m.pair_geoms[:, 0])
+    ib = _index(m, "pair_geom_b", q, lambda: m.pair_geoms[:, 1])
     c_a, c_b = _seg_seg_closest(p0_w[:, ia], p1_w[:, ia], p0_w[:, ib], p1_w[:, ib])
     delta = c_b - c_a
     dist = torch.linalg.vector_norm(delta, dim=-1)
@@ -351,8 +362,8 @@ def _pair_kinematics(m: PlanarModel, q: Tensor, fkd: FK | None = None):
     depth = (ra + rb) - dist
     x_a = c_a + n * ra[:, None]
     x_b = c_b - n * rb[:, None]
-    gb = np.asarray(m.geom_body)
-    ba, bb = gb[ia], gb[ib]
+    ba = _index(m, "pair_body_a", q, lambda: np.asarray(m.geom_body)[m.pair_geoms[:, 0]])
+    bb = _index(m, "pair_body_b", q, lambda: np.asarray(m.geom_body)[m.pair_geoms[:, 1]])
     u_a = _rot(-ang[:, ba], x_a - pos[:, ba])
     u_b = _rot(-ang[:, bb], x_b - pos[:, bb])
     _, Ja, _, _ = point_jacobians(m, q, u_a, ba, fkd=fkd)  # (B, P, 2, nv)
@@ -361,8 +372,8 @@ def _pair_kinematics(m: PlanarModel, q: Tensor, fkd: FK | None = None):
     Jn = torch.einsum("npc,npcv->npv", n, J_rel)
     Jt = torch.einsum("npc,npcv->npv", _perp(n), J_rel)
     # MuJoCo combines pair friction with the elementwise max
-    mu = m.tensor("pair_mu", q, lambda: np.maximum(np.float32(m.geom_friction[ia]),
-                                                   np.float32(m.geom_friction[ib])))
+    fr = lambda side: np.float32(m.geom_friction[m.pair_geoms[:, side]])  # noqa: E731
+    mu = m.tensor("pair_mu", q, lambda: np.maximum(fr(0), fr(1)))
     return Jn, Jt, depth, mu
 
 
@@ -371,7 +382,7 @@ def _wall_kinematics(m: PlanarModel, q: Tensor, fkd: FK | None = None):
     space n·x − d ≥ 0): (Jn (B, ncon·nwall, nv), Jt, depth, mu)."""
     fkd = fk_dofs(m, q) if fkd is None else fkd
     pos, ang, _, _ = fkd
-    cb = np.asarray(m.con_body)
+    cb = _index(m, "con_body", q)
     normals = m.tensor("wall_normal", q)
     Jns, Jts, depths = [], [], []
     for w in range(m.nwall):
@@ -413,10 +424,9 @@ def _rope_kinematics(m: PlanarModel, q: Tensor, fkd: FK | None = None):
     rope_pos = m.tensor("rope_pos", q)
     xs, Js = [], []
     for side in (0, 1):
-        b = np.asarray(m.rope_body[:, side])
         local = rope_pos[:, side]
-        world = torch.as_tensor(b < 0, device=q.device)
-        b_safe = np.maximum(b, 0)
+        world = m.tensor(f"rope_world_{side}", q, lambda: m.rope_body[:, side] < 0, torch.bool)
+        b_safe = _index(m, f"rope_body_{side}", q, lambda: np.maximum(m.rope_body[:, side], 0))
         x_body = pos[:, b_safe] + _rot(ang[:, b_safe], local)
         xs.append(torch.where(world[None, :, None], local, x_body))
         _, J, _, _ = point_jacobians(m, q, local, b_safe, fkd=fkd)
@@ -689,7 +699,7 @@ def fluid_forces(m: PlanarModel, q: Tensor, qd: Tensor, fkd: FK | None = None) -
     where the model has them: per body −c·|v|·v in body axes at the COM and
     −c_ω·|ω|·ω, mapped through the COM Jacobians and the angular Jacobian."""
     fkd = fk_dofs(m, q) if fkd is None else fkd
-    _, Jv, _, ang = point_jacobians(m, q, m.tensor("com", q), np.arange(m.nb), fkd=fkd)
+    _, Jv, _, ang = point_jacobians(m, q, m.tensor("com", q), _all_bodies(m, q), fkd=fkd)
     Jw = m.tensor("angular_jacobian", q, lambda: (  # (nb, nv): ω = Jw @ qd
         _ancestor_dof_mask(m).astype(np.float32) * _hinge_sign(m).astype(np.float32)[None]))
     v_com = torch.einsum("nbcv,nv->nbc", Jv, qd)
@@ -710,7 +720,7 @@ def actuation(m: PlanarModel, ctrl: Tensor) -> Tensor:
     ctrl = torch.clamp(ctrl, -1.0, 1.0)
     if m.act_moment is not None:
         return ctrl @ m.tensor("act_moment", ctrl)
-    idx = torch.as_tensor(m.act_dof, device=ctrl.device)
+    idx = _index(m, "act_dof", ctrl)
     tau = ctrl.new_zeros(ctrl.shape[0], m.nv)
     return tau.index_add(1, idx, m.tensor("gear", ctrl) * ctrl)
 

@@ -5,7 +5,8 @@ imported inside it), and the baked-asset `save` and `load`.
 
 The model holds small NumPy constants. Engine functions need them as
 tensors on the state's device; `PlanarModel.tensor` converts each field
-once per (device, dtype) and keeps it on the instance.
+(and each index) once per (device, dtype) and keeps it on the instance, so
+a step copies nothing from the host and can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -153,14 +154,17 @@ class PlanarModel:
         return dataclasses.replace(self, **kw)
 
     def tensor(self, name: str, like: torch.Tensor,
-               make: Callable[[], np.ndarray] | None = None) -> torch.Tensor:
+               make: Callable[[], np.ndarray] | None = None,
+               dtype: torch.dtype | None = None) -> torch.Tensor:
         """Field `name` (or the array `make()` derives from the model) as a
-        tensor on `like`'s device and dtype, converted once and cached."""
-        key = (name, like.device, like.dtype)
+        tensor on `like`'s device and dtype (or `dtype`: torch.long for an
+        index), converted once and cached."""
+        dtype = like.dtype if dtype is None else dtype
+        key = (name, like.device, dtype)
         t = self._tensors.get(key)
         if t is None:
             arr = make() if make is not None else getattr(self, name)
-            t = torch.as_tensor(np.asarray(arr), device=like.device).to(like.dtype)
+            t = torch.as_tensor(np.asarray(arr), device=like.device).to(dtype)
             self._tensors[key] = t
         return t
 

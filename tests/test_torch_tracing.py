@@ -149,7 +149,9 @@ def test_spans_add_no_device_event_on_the_card():
     assert not [e for e in device if e[3] in ("gpu_user_annotation", "user_annotation")
                 or e[0] in PARENT]
     spans = [e for e in events if e[0] in PARENT]
-    assert {e[0] for e in spans} == set(PARENT)
+    # On the card the env step replays CUDA graphs: the stepper's own spans
+    # run only while the warm-up's step captures them.
+    assert {e[0] for e in spans} == set(PARENT) - {"physics.dynamics", "physics.constraints"}
     assert not [e for e in spans if e[4] or e[3] not in ("cpu_op", None)]
     # with no profiler: no synchronise and no allocation
     before = torch.cuda.memory_allocated()
