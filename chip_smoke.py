@@ -19,7 +19,8 @@ Phases, each of which exits non-zero on failure:
      version on the card, and times both with CUDA events, and again at the
      finger-spin path's shapes (GAE at (T, B) = (128, 128), the loss at
      N = 4096 rows with A = 2) and, for the loss, at the CLI cartpole
-     path's (A = 1) and the pixel PPO path's (N = 2048, A = 6); checks
+     path's (A = 1), the pixel PPO path's (N = 2048, A = 6) and the GTrXL
+     path's (N = 16,384, A = 6: 128 whole sequences of 128 steps); checks
      and times GAE at the recipes' other two (T, B) too; times the fused
      loss's forward and backward as autograd runs them;
   4. checks the slice on a small input: one PPO update on the card (loss
@@ -240,6 +241,13 @@ their group:
      (launch-bound processes on cores of their own); their checks follow
      35-37. No timed in-process cell and no profile runs beside them. Each
      phase's wall time is printed.
+ 41. runs GTrXL PPO on cheetah-run (`torso="gtrxl"` at the published widths:
+     12 layers, width 256, 8 heads, a memory of 512; 128 envs, horizon 128,
+     4 epochs x 8 minibatches of 16 whole sequences) for 1 warm-up and 1
+     timed iteration; checks from the launch counters, set to 0 before its
+     first iteration, that each iteration launched the loss forward and
+     backward kernels 32 times each and GAE never, and that the memory
+     holds the steps taken;
  40. a checkpoint resumed under another layout, as the reference's orbax
      restore resumes it, after phases 16 and 12 once the runs of 34 and 39
      that write its checkpoints are done (beside their other runs): phase
@@ -253,7 +261,7 @@ their group:
      (the CLI's session in each rank: its rows of the batch, the learner,
      the generator by checkpoint.py's rule); 32 + 32 loss launches each
      (a rank) from the counters, and the seconds.
-Phases 6 to 9, 11, 12, 14 to 24, 26 to 40 print one JSON object each
+Phases 6 to 9, 11, 12, 14 to 24, 26 to 41 print one JSON object each
 (three in phase 26), phases 10 and 13 one per task. The whole run's time
 follows; the line before the card's is a JSON object with one entry per
 kernel (GAE, on no trainer path since the reference's default is the XLA
@@ -331,6 +339,7 @@ FINGER_GAE = (128, 128)  # finger-spin's recipe: horizon 128, 128 envs
 FINGER_ACTIONS = 2
 CARTPOLE_ACTIONS = 1  # cartpole-balance, the CLI phase's path: one actuator
 PIXEL_ROWS = 2048  # the pixel PPO recipe's minibatch: 128 envs x horizon 128 / 8
+GTRXL_ROWS = 16384  # the GTrXL cell's minibatch: 128 of 1,024 envs' sequences x horizon 128
 TOL_LOSS_FWD = 1e-5  # the loss and 5 means of O(1) terms; 4096-term sums in another order
 TOL_LOSS_BWD = 1e-6  # per-row gradients of size ~1e-4 (they carry 1/N), and their row sum
 # The env step on the card against the CPU: sinf/cosf in FK differ by a few
@@ -604,8 +613,9 @@ SLIM = ("name", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"
 def phase_kernels(dev):
     """Each kernel at the cheetah path's shapes (the kernels line's entry),
     at the finger-spin path's, at the CLI cartpole path's and, for the loss,
-    at the pixel PPO path's: GAE at (T, B) = (128, 256) and (128, 128), the
-    loss at N = 4096 rows with A = 6, 2 and 1, and at N = 2048 with A = 6."""
+    at the pixel PPO and GTrXL paths': GAE at (T, B) = (128, 256) and
+    (128, 128), the loss at N = 4096 rows with A = 6, 2 and 1, at N = 2048
+    with A = 6 and at N = 16,384 with A = 6."""
     from surreal_tpu_torch.ops import gae_kernel, ppo_loss_kernel as plk, returns
 
     rng = np.random.default_rng(0)
@@ -619,6 +629,8 @@ def phase_kernels(dev):
     cartpole = {"ppo_loss_fwd": c_fwd, "ppo_loss_bwd": c_bwd}
     p_fwd, p_bwd, _ = loss_cases(plk, rng, PIXEL_ROWS, 6, dev)
     pixel = {"ppo_loss_fwd": p_fwd, "ppo_loss_bwd": p_bwd}
+    g_fwd, g_bwd, _ = loss_cases(plk, rng, GTRXL_ROWS, 6, dev)
+    gtrxl = {"ppo_loss_fwd": g_fwd, "ppo_loss_bwd": g_bwd}
     for name, k in out.items():
         print_kernel(k)
         print_kernel(finger[name])
@@ -628,6 +640,8 @@ def phase_kernels(dev):
             k["at_cartpole_shape"] = {f: cartpole[name][f] for f in SLIM}
             print_kernel(pixel[name])
             k["at_pixel_ppo_shape"] = {f: pixel[name][f] for f in SLIM}
+            print_kernel(gtrxl[name])
+            k["at_gtrxl_shape"] = {f: gtrxl[name][f] for f in SLIM}
     gae_at_shapes("this checkout", returns, dev, GAE_SHAPES[1:])
     print_autograd_times("this checkout", loss_autograd_times(plk, batch, coefs))
     return out
@@ -1143,6 +1157,49 @@ def phase_lstm(dev):
     if t.state.update_step != iters or t.state.opt_state.count != 32 * iters:
         fail(f"update_step {t.state.update_step}, Adam count {t.state.opt_state.count}")
     return t, launches, out
+
+
+def phase_gtrxl(dev):
+    """GTrXL PPO at the published widths over 128 envs. Returns the three
+    kernels' launch counts as read after its last update (set to 0 before
+    its first iteration)."""
+    from surreal_tpu_torch.algos.ppo import PPOConfig
+    from surreal_tpu_torch.train import PPOTrainer
+
+    cfg = PPOConfig(horizon=128, epochs=4, num_minibatches=8, lr=3e-4, fused_loss=True)
+    torso = dict(layers=12, width=256, heads=8, memory=512, mlp_width=1024)
+    torch.cuda.reset_peak_memory_stats()
+    t = PPOTrainer("cheetah-run", cfg, num_envs=128, seed=0, device=dev, torso="gtrxl",
+                   gtrxl=torso)
+    kernels = path_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    t.run(1, log_every=1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    m = t.run(1, log_every=1)[-1]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {n: k.launches for n, k in kernels.items()}
+    written = int(t.carry.valid.sum(1).min())
+    out = {"phase": "gtrxl_ppo", "num_envs": 128, "gtrxl": torso, "warmup_s": t1 - t0,
+           "s_per_iteration": t2 - t1, "env_steps_per_s": t.steps_per_iteration / (t2 - t1),
+           "kernel_launches": launches, "iterations": 2, "fewest_valid_slots": written,
+           "policy_loss": m["policy_loss"], "value_loss": m["value_loss"], "kl": m["kl"],
+           "grad_norm": m["grad_norm"], "reward_per_step": m["reward_per_step"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    print(json.dumps(out))
+    check_finite("gtrxl", m)
+    if launches != {"gae": 0, "ppo_loss_fwd": 64, "ppo_loss_bwd": 64}:
+        fail(f"2 GTrXL iterations launched {launches}, not the loss forward and backward 64 "
+             "times each and GAE never")
+    if t.carry.t != 2 * cfg.horizon or not 0 < written <= 2 * cfg.horizon:
+        fail(f"the GTrXL clock is {t.carry.t} and an env's memory holds {written} steps after "
+             f"{2 * cfg.horizon}")
+    if t.state.update_step != 2 or t.state.opt_state.count != 64:
+        fail(f"update_step {t.state.update_step}, Adam count {t.state.opt_state.count}")
+    return launches
 
 
 TOL_SERVING = 1e-6  # JSON carries float32 exactly; the forward is the same on the same card
@@ -4803,6 +4860,7 @@ def main():
     pixel_ddpg_launches = timed_phase("15 pixel ddpg", phase_pixel_ddpg, dev)[1]
     bf16_launches = timed_phase("17 bf16", phase_bf16, dev)[1]
     timed_phase("18 bf16 parity", phase_bf16_parity, dev)
+    gtrxl_launches = timed_phase("41 gtrxl", phase_gtrxl, dev)
     overlap_launches = timed_phase("19 overlap", phase_overlap, dev, trainer)
     found = phase_host_bridges()
     os.environ.setdefault("MUJOCO_GL", "egl")  # dm_control picks its GL platform when imported
@@ -4845,6 +4903,7 @@ def main():
                    "ddpg_pixel_ball_in_cup": pixel_ddpg_launches[name],
                    "cli_ppo_pixel_cheetah": cli_pixel_launches[name],
                    "ppo_bf16": bf16_launches[name], "ppo_overlap": overlap_launches[name],
+                   "ppo_gtrxl": gtrxl_launches[name],
                    "cli_ppo_cartpole_bf16_overlap": cli_bf16_launches[name],
                    "ppo_instance": instance_launches[name],
                    # None: gymnasium is missing, so the path was not driven

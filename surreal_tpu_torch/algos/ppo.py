@@ -321,6 +321,14 @@ def surrogate_loss(cfg: PPOConfig, mean: Tensor, log_std: Tensor, value: Tensor,
 def _loss_fn(cfg: PPOConfig, net: PPOActorCritic, batch, kl_beta: Tensor, ent_coef: float):
     obs, *rest = batch
     mean, log_std, value = net(obs)
+    return loss_of_outputs(cfg, mean, log_std, value, rest, kl_beta, ent_coef)
+
+
+def loss_of_outputs(cfg: PPOConfig, mean: Tensor, log_std: Tensor, value: Tensor, rest,
+                    kl_beta: Tensor, ent_coef: float):
+    """The loss of the network's outputs on flat rows (N, ...): the fused
+    kernels where `fused_loss_admits`, else `surrogate_loss`. `rest` is
+    (action, logp_old, mean_old, log_std_old, adv, vtarg, v_old)."""
     if fused_loss_admits(cfg, mean.shape[0]):
         from surreal_tpu_torch.ops.ppo_loss_kernel import fused_clip_loss
 
@@ -350,7 +358,9 @@ def apply_gradients(cfg: PPOConfig, state: PPOTrainState, loss: Tensor, lr: Tens
     norm."""
     names, params = zip(*state.net.named_parameters())
     with span("ppo.update.backward"):
-        grads = dict(zip(names, pmean_flat(torch.autograd.grad(loss, params), axis)))
+        grads = torch.autograd.grad(loss, params)
+        with span("ppo.update.allreduce"):
+            grads = dict(zip(names, pmean_flat(grads, axis)))
     sharded = tp.sharding_of(state.net)
     with torch.no_grad(), span("ppo.update.optimizer"):
         if sharded is None:

@@ -76,6 +76,16 @@ PPO_BASE_LEARNER_CONFIG = Config(
     compute_dtype="float32",
 )
 
+# Port-only PPO learner keys: the torso, and the GTrXL's sizes (Parisotto et
+# al. 2020's DMLab-30 agent: 12 layers, width 256, 8 heads, a 512-step
+# memory; the MLP 4 x the width). They join the learner config only where
+# the overrides name one of them, so every other run writes the reference's
+# config.json key for key.
+PPO_TORSO_CONFIG = Config(
+    torso="mlp",  # 'mlp' | 'gtrxl'
+    gtrxl=Config(layers=12, width=256, heads=8, memory=512, mlp_width=1024),
+)
+
 DDPG_BASE_LEARNER_CONFIG = Config(
     algo="ddpg",
     rollout_steps=16,
@@ -120,6 +130,8 @@ def generate_configs(algo: str, overrides: dict | None = None):
         "ddpg": DDPG_BASE_LEARNER_CONFIG,
     }[algo]
     base_env, base_session = BASE_ENV_CONFIG, BASE_SESSION_CONFIG
+    if algo == "ppo" and set(overrides.get("learner") or {}) & set(PPO_TORSO_CONFIG):
+        base_learner = Config(base_learner, PPO_TORSO_CONFIG.deepcopy())
 
     env_over = Config(overrides.get("env") or {})
     sess_over = Config(overrides.get("session") or {})

@@ -116,7 +116,8 @@ def _check_layout(learner: Config, data: int, model: int, time: int) -> None:
     if learner.algo == "ppo":
         from surreal_tpu_torch.train.ppo_trainer import check_layout
 
-        check_layout(algo_cfg, model, time, bool(learner.use_lstm), bool(learner.overlap))
+        check_layout(algo_cfg, model, time, bool(learner.use_lstm), bool(learner.overlap),
+                     str(learner.get("torso", "mlp")), data)
     else:
         from surreal_tpu_torch.train.ddpg_trainer import check_layout
 
@@ -138,7 +139,9 @@ def _build_trainer(learner: Config, env_cfg: Config, session: Config, device: st
         return PPOTrainer(
             env_cfg.env_name, algo_cfg, num_envs=int(env_cfg.num_envs), seed=seed,
             hidden=tuple(learner.hidden), use_lstm=bool(learner.use_lstm),
-            lstm_size=int(learner.lstm_size), overlap=bool(learner.overlap), **common,
+            lstm_size=int(learner.lstm_size), overlap=bool(learner.overlap),
+            torso=str(learner.get("torso", "mlp")),
+            gtrxl=learner.gtrxl.to_dict() if "gtrxl" in learner else None, **common,
         )
     from surreal_tpu_torch.train import DDPGTrainer
 

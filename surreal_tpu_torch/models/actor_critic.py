@@ -2,6 +2,8 @@
 an optional conv stem for pixel observations (one, shared by both torsos),
 an optional LSTM, separate actor and critic MLP torsos, a Gaussian mean
 head, a value head and a state-independent log-std clipped to [-8, 2].
+With `gtrxl` (port-only, `models/gtrxl.py`) one GTrXL torso replaces the
+MLPs, and both heads read its output, as the GTrXL paper's agent does.
 
 `compute_dtype` is the networks' (bfloat16: A13); `mean` and `value` are
 cast to float32 after the heads and `log_std` stays float32, so the loss,
@@ -15,17 +17,21 @@ import torch
 from torch import nn
 
 from surreal_tpu_torch.models.blocks import MLP, ConvStem, LSTMCell, linear
+from surreal_tpu_torch.models.gtrxl import GTrXL
 
 
 class PPOActorCritic(nn.Module):
     """`obs_dim` is the flat observation's size, or with `pixel_obs` the
-    frame stack's shape (H, W, C)."""
+    frame stack's shape (H, W, C). `gtrxl`, GTrXL's keyword arguments
+    (layers, width, heads, memory, mlp_width), makes the torso a
+    GTrXL over flat observations; `hidden` and `activation` are then unused,
+    and the algorithm drives the torso (`algos/ppo_gtrxl.py`)."""
 
     def __init__(self, obs_dim: int | Sequence[int], action_dim: int,
                  hidden: Sequence[int] = (64, 64), activation: str = "tanh",
                  init_log_std: float = 0.0, pixel_obs: bool = False, use_lstm: bool = False,
                  lstm_size: int = 128, generator: torch.Generator | None = None,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, gtrxl: dict | None = None):
         super().__init__()
         self.pixel_obs = pixel_obs
         self.compute_dtype = compute_dtype
@@ -34,13 +40,23 @@ class PPOActorCritic(nn.Module):
             obs_dim = self.stem.out_dim
         self.use_lstm = use_lstm
         self.lstm_size = lstm_size
-        torso_in = lstm_size if use_lstm else obs_dim
-        self.actor_torso = MLP(torso_in, hidden, activation, generator=generator,
+        self.use_gtrxl = gtrxl is not None
+        if self.use_gtrxl:
+            if pixel_obs or use_lstm:
+                raise ValueError("the GTrXL torso takes flat observations, without an LSTM")
+            self.gtrxl = GTrXL(obs_dim, **gtrxl, generator=generator,
                                compute_dtype=compute_dtype)
-        self.critic_torso = MLP(torso_in, hidden, activation, generator=generator,
-                                compute_dtype=compute_dtype)
-        self.mean_head = nn.Linear(self.actor_torso.out_dim, action_dim)
-        self.value_head = nn.Linear(self.critic_torso.out_dim, 1)
+            self.actor_torso = self.critic_torso = None
+            head_in = self.gtrxl.out_dim
+        else:
+            torso_in = lstm_size if use_lstm else obs_dim
+            self.actor_torso = MLP(torso_in, hidden, activation, generator=generator,
+                                   compute_dtype=compute_dtype)
+            self.critic_torso = MLP(torso_in, hidden, activation, generator=generator,
+                                    compute_dtype=compute_dtype)
+            head_in = self.actor_torso.out_dim
+        self.mean_head = nn.Linear(head_in, action_dim)
+        self.value_head = nn.Linear(head_in, 1)
         with torch.no_grad():
             # orthogonal(0.01) / orthogonal(1.0) kernels, zero biases (flax)
             nn.init.orthogonal_(self.mean_head.weight, 0.01, generator=generator)
@@ -53,9 +69,13 @@ class PPOActorCritic(nn.Module):
 
     def heads(self, x: torch.Tensor):
         """Torso input x (..., D) -> (mean (..., A), log_std (A,), value (...)),
-        all three float32."""
-        mean = linear(self.mean_head, self.actor_torso(x)).to(torch.float32)
-        value = linear(self.value_head, self.critic_torso(x)).to(torch.float32)[..., 0]
+        all three float32. With GTrXL, x is the torso's output itself."""
+        if self.use_gtrxl:
+            actor = critic = x.to(self.compute_dtype)
+        else:
+            actor, critic = self.actor_torso(x), self.critic_torso(x)
+        mean = linear(self.mean_head, actor).to(torch.float32)
+        value = linear(self.value_head, critic).to(torch.float32)[..., 0]
         # Bounded log-std: the clip binds only when training is diverging.
         log_std = torch.clamp(self.log_std, -8.0, 2.0)
         return mean, log_std, value
@@ -68,7 +88,11 @@ class PPOActorCritic(nn.Module):
     def forward(self, obs: torch.Tensor, carry=None):
         """obs (..., D) or (..., H, W, C) -> (mean, log_std, value); with
         `use_lstm`, `carry` is the LSTM state `(c, h)` and the new carry is
-        returned fourth."""
+        returned fourth. A GTrXL torso has no forward of its own: its state is
+        a ring and a cache (`algos/ppo_gtrxl.py` drives it)."""
+        if self.use_gtrxl:
+            raise TypeError("a GTrXL actor-critic steps through its torso's cache: "
+                            "net.heads(net.gtrxl.step(...))")
         x = self.encode(obs)
         if not self.use_lstm:
             return self.heads(x)

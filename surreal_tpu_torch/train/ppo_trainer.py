@@ -9,7 +9,9 @@ steps of `parallel.dp` over the data axis, the GAE scan split over the
 time axis (`cfg.time_shards`) and ZeRO's moments over the data axis
 (`cfg.zero_shards`), each set from the mesh as the reference's trainer
 sets them; or, with a model axis, with the network sharded over it and the
-one-device step's semantics (`parallel.tp`)."""
+one-device step's semantics (`parallel.tp`). With `torso="gtrxl"` the
+policy is a GTrXL (`models/gtrxl.py`, `algos/ppo_gtrxl.py`), on one device
+only: no mesh, no overlap, no LSTM."""
 
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import functools
 
 import torch
 
-from surreal_tpu_torch.algos import ppo, ppo_lstm
+from surreal_tpu_torch.algos import ppo, ppo_gtrxl, ppo_lstm
 from surreal_tpu_torch.envs import base as env_base
 from surreal_tpu_torch.envs import make_env
 from surreal_tpu_torch.envs.wrappers import PixelWrapper, pixel_flatten_obs
@@ -37,10 +39,20 @@ from surreal_tpu_torch.train.loop import (
 )
 
 
+TORSOS = ("mlp", "gtrxl")
+ONE_DEVICE = ("torso 'gtrxl' runs on one device only: it does not compose with a mesh (data, "
+              "model or time axis), overlap or use_lstm")
+
+
 def check_layout(cfg: ppo.PPOConfig, model: int, time: int, use_lstm: bool = False,
-                 overlap: bool = False) -> None:
+                 overlap: bool = False, torso: str = "mlp", data: int = 1) -> None:
     """The reference trainer's refusals of a mesh's model and time axes, with
-    its messages (the CLI checks them before it starts the ranks)."""
+    its messages (the CLI checks them before it starts the ranks), and the
+    port's of a GTrXL torso anywhere but on one device."""
+    if torso not in TORSOS:
+        raise ValueError(f"unknown torso {torso!r} (one of {', '.join(TORSOS)})")
+    if torso == "gtrxl" and (data > 1 or model > 1 or time > 1 or overlap or use_lstm):
+        raise ValueError(ONE_DEVICE)
     if model > 1 and time > 1:
         raise ValueError("mesh.model and mesh.time cannot both be > 1")
     if model > 1 and (use_lstm or cfg.zero_optimizer or cfg.publish_every > 1 or overlap):
@@ -59,9 +71,13 @@ class PPOTrainer(Trainer):
                  compute_dtype: str | torch.dtype = torch.float32,
                  pixel_obs: bool = False, pixel_kwargs: dict | None = None,
                  use_lstm: bool = False, lstm_size: int = 128, env_kwargs: dict | None = None,
-                 debug_checks: bool = False, mesh=None, overlap: bool = False):
+                 debug_checks: bool = False, mesh=None, overlap: bool = False,
+                 torso: str = "mlp", gtrxl: dict | None = None):
         if overlap and use_lstm:
             raise ValueError("overlap does not compose with use_lstm")
+        self.use_gtrxl = torso == "gtrxl"
+        if self.use_gtrxl and mesh is not None:  # a one-rank mesh too: the sharded steps
+            raise ValueError(ONE_DEVICE)
         self.overlap = overlap
         self._pending = None  # overlap: the trajectory awaiting its update
         cfg = cfg or ppo.PPOConfig()
@@ -72,7 +88,7 @@ class PPOTrainer(Trainer):
                 cfg = dataclasses.replace(cfg, zero_shards=mesh.shape[DATA_AXIS])
             model_shards, time_shards = mesh.shape[MODEL_AXIS], mesh.shape[TIME_AXIS]
         self._check_mesh(num_envs, debug_checks)
-        check_layout(cfg, model_shards, time_shards, use_lstm, overlap)
+        check_layout(cfg, model_shards, time_shards, use_lstm, overlap, torso)
         if time_shards > 1:
             cfg = dataclasses.replace(cfg, time_shards=time_shards)
         self.device = self._resolve_device(device)
@@ -100,12 +116,14 @@ class PPOTrainer(Trainer):
         self.use_lstm = use_lstm
         net = PPOActorCritic(net_in, self.env.action_dim, hidden=tuple(hidden),
                              pixel_obs=pixel_obs, use_lstm=use_lstm, lstm_size=lstm_size,
-                             generator=init_gen,
-                             compute_dtype=resolve_dtype(compute_dtype)).to(self.device)
+                             generator=init_gen, compute_dtype=resolve_dtype(compute_dtype),
+                             gtrxl=dict(gtrxl or {}) if self.use_gtrxl else None
+                             ).to(self.device)
         self.env_state, ts0 = self.env.reset(num_envs, self.generator)
         self.obs = self._flatten(ts0.obs)
         self.local_envs = num_envs
-        self.carry = net.initial_carry((num_envs,))  # None without an LSTM
+        self.carry = (ppo_gtrxl.initial_carry(net, num_envs, self.device) if self.use_gtrxl
+                      else net.initial_carry((num_envs,)))  # None without either
         self.sharding = tp.shard_module(net, mesh) if model_shards > 1 else None
         self.state = ppo.init_state(self.cfg, net, obs_dim)
         self.ep_ret = torch.zeros(num_envs, dtype=torch.float32, device=self.device)
@@ -128,7 +146,8 @@ class PPOTrainer(Trainer):
                 self.carry = dp.shard_env_batch(mesh, self.carry)
         else:  # one device: the algorithm's own steps
             self._step = (ppo.train_step_overlapped if overlap else
-                          ppo_lstm.train_step if use_lstm else ppo.train_step)
+                          ppo_lstm.train_step if use_lstm else
+                          ppo_gtrxl.train_step if self.use_gtrxl else ppo.train_step)
             self._step = functools.partial(self._step, self.cfg, self.env, self._flatten)
             self._prime = functools.partial(ppo.rollout, self.cfg, self.env, self._flatten)
 
@@ -138,7 +157,8 @@ class PPOTrainer(Trainer):
 
     # ---- full-state checkpointing: the network, Adam, the Z-filter, the
     # KL/LR adaptation, the actors' snapshot, the env batch (and its frame
-    # stacks), the LSTM carry, the generator and the counters all survive.
+    # stacks), the LSTM carry or the GTrXL memory, the generator and the
+    # counters all survive.
     # The overlapped step's pending trajectory does not, as in the
     # reference: a restored trainer primes again, so a resumed overlapped
     # run is not the uninterrupted one. The learner is held whole: ZeRO's
@@ -156,6 +176,8 @@ class PPOTrainer(Trainer):
             fs["psync"] = {"net": s.psync.actor_params.state_dict(), "version": s.psync.version}
         if self.use_lstm:
             fs["carry"] = list(self.carry)
+        if self.use_gtrxl:
+            fs["carry"] = self.carry.to_dict()
         return fs
 
     def load_full_state(self, fs: dict) -> None:
@@ -171,12 +193,16 @@ class PPOTrainer(Trainer):
             s.psync.version = int(fs["psync"]["version"])
         if self.use_lstm:
             self.carry = tuple(fs["carry"])
+        if self.use_gtrxl:
+            self.carry = ppo_gtrxl.GTrXLCarry.from_dict(fs["carry"])
         self._load_run_state(fs)
         self._pending = None  # overlap: primed again by the next run()
 
     def _fresh_episodes(self) -> None:
         if self.use_lstm:  # the carry of a new episode, as the rollout sets it
             self.carry = self.state.net.initial_carry((self.local_envs,))
+        if self.use_gtrxl:  # an empty memory
+            self.carry = ppo_gtrxl.initial_carry(self.state.net, self.local_envs, self.device)
 
     def run(self, iterations: int, log_every: int | None = None, metric_sink=None) -> list[dict]:
         """With `overlap`, the first call (and the first after
@@ -193,7 +219,7 @@ class PPOTrainer(Trainer):
             (self.state, self.env_state, self.obs, self.ep_ret, self._pending,
              metrics) = self._step(self.state, self.env_state, self.obs, self.ep_ret,
                                    self._pending, self.generator)
-        elif self.use_lstm:
+        elif self.use_lstm or self.use_gtrxl:
             (self.state, self.env_state, self.obs, self.carry, self.ep_ret,
              metrics) = self._step(self.state, self.env_state, self.obs, self.carry,
                                    self.ep_ret, self.generator)
@@ -207,8 +233,8 @@ class PPOTrainer(Trainer):
 
     def deterministic_policy(self):
         """(policy_fn, zfilter): policy_fn(obs) -> the mean action, for
-        recording; None for LSTM policies (policy_fn has no state)."""
-        if self.use_lstm:
+        recording; None for LSTM and GTrXL policies (policy_fn has no state)."""
+        if self.use_lstm or self.use_gtrxl:
             return None
         zf = self.state.zfilter if self.cfg.use_zfilter else None
         return (lambda obs: self.state.net(obs)[0]), zf
@@ -221,6 +247,21 @@ class PPOTrainer(Trainer):
 
         def act(mean, log_std, generator):
             return DiagGauss.sample(mean, log_std, generator=generator) if stochastic else mean
+
+        if self.use_gtrxl:
+            m = net.gtrxl.memory
+
+            def policy(obs, generator, pstate):
+                cache, valid, t = pstate
+                mean, log_std, _ = ppo_gtrxl.act(net, obs, cache, t, valid)
+                valid[:, t % m] = True  # no episode ends within the evaluation's one
+                return act(mean, log_std, generator), (cache, valid, t + 1)
+
+            fresh = ppo_gtrxl.initial_carry(net, episodes, self.device)
+            return evaluate_policy(self.env, policy, zf, episodes=episodes, seed=seed,
+                                   flatten=self._flatten,
+                                   init_policy_state=(net.gtrxl.prefill(fresh.memory),
+                                                      fresh.valid, 0))
 
         if self.use_lstm:
             def policy(obs, generator, carry):

@@ -35,6 +35,7 @@ PARENT = {
     "ppo.update.minibatch": None,
     "ppo.update.loss": "ppo.update.minibatch",
     "ppo.update.backward": "ppo.update.minibatch",
+    "ppo.update.allreduce": "ppo.update.backward",
     "ppo.update.optimizer": "ppo.update.minibatch",
     "ppo.update.finish": None,
 }
@@ -95,7 +96,8 @@ def test_spans_nest_as_the_layers_do_one_per_step_each_a_cpu_op():
         **{n: steps for n in PARENT if n.startswith(("ppo.rollout.", "env.", "physics."))},
         "ppo.rollout.finish": 1, "ppo.update.advantages": 1, "ppo.update.finish": 1,
         **{n: minibatches for n in ("ppo.update.minibatch", "ppo.update.loss",
-                                    "ppo.update.backward", "ppo.update.optimizer")}}
+                                    "ppo.update.backward", "ppo.update.allreduce",
+                                    "ppo.update.optimizer")}}
     for span in spans:
         assert span[3] == "cpu_op" and not span[4], span
         assert _parent(span, spans) == PARENT[span[0]], span
