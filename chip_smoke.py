@@ -22,7 +22,12 @@ Phases, each of which exits non-zero on failure:
      path's (A = 1), the pixel PPO path's (N = 2048, A = 6) and the GTrXL
      path's (N = 16,384, A = 6: 128 whole sequences of 128 steps); checks
      and times GAE at the recipes' other two (T, B) too; times the fused
-     loss's forward and backward as autograd runs them;
+     loss's forward and backward as autograd runs them; holds the GTrXL
+     segment attention's forward and backward kernels at the cell's shape
+     (B, H, T, m + T) = (128, 8, 128, 640), d_head 32, over ragged episodes
+     and a partly empty ring, against the torch ops (`attention_plain`)
+     through autograd (the output, dqu, dqv, dk, dv and dpos, each to 1e-5
+     of its largest element) and times each way against them;
   4. checks the slice on a small input: one PPO update on the card (loss
      kernels; GAE by the reference's default, the torch scan) against the
      same update on the CPU (plain versions), the GAE kernel (backend
@@ -246,8 +251,9 @@ their group:
      4 epochs x 8 minibatches of 16 whole sequences) for 1 warm-up and 1
      timed iteration; checks from the launch counters, set to 0 before its
      first iteration, that each iteration launched the loss forward and
-     backward kernels 32 times each and GAE never, and that the memory
-     holds the steps taken;
+     backward kernels 32 times each and GAE never, the segment attention's
+     forward and backward kernels 12 times each a minibatch step (once a
+     layer), and that the memory holds the steps taken;
  40. a checkpoint resumed under another layout, as the reference's orbax
      restore resumes it, after phases 16 and 12 once the runs of 34 and 39
      that write its checkpoints are done (beside their other runs): phase
@@ -342,6 +348,13 @@ PIXEL_ROWS = 2048  # the pixel PPO recipe's minibatch: 128 envs x horizon 128 / 
 GTRXL_ROWS = 16384  # the GTrXL cell's minibatch: 128 of 1,024 envs' sequences x horizon 128
 TOL_LOSS_FWD = 1e-5  # the loss and 5 means of O(1) terms; 4096-term sums in another order
 TOL_LOSS_BWD = 1e-6  # per-row gradients of size ~1e-4 (they carry 1/N), and their row sum
+# The GTrXL cell's segment attention: B sequences, T steps, a memory of m, H
+# heads of d_head; each output held to TOL_ATTENTION of its largest plain
+# element (float32 sums of up to 640 terms, and dpos's over B and T, in
+# another order; tests/test_torch_gtrxl_attention.py's bar)
+GTRXL_SEGMENT = (128, 128, 512, 8, 32)
+TOL_ATTENTION = 1e-5
+ATTENTION_KERNELS = ("gtrxl_attention_fwd", "gtrxl_attention_bwd")
 # The env step on the card against the CPU: sinf/cosf in FK differ by a few
 # ulps between the two, and 20 Jacobi sweeps amplify that by the Delassus
 # operator's conditioning. A contact is active iff its depth is > 0, so
@@ -417,7 +430,7 @@ def phase_build():
     libs = build.build_all()
     print(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.2f} s "
           f"({', '.join(p.name for p in libs)})")
-    for source in ("gae.cu", "ppo_loss.cu"):
+    for source in ("gae.cu", "ppo_loss.cu", "gtrxl_attention.cu"):
         for line in build.build_log(source).splitlines():
             if "ptxas" in line:
                 print(f"build {source}: {line.strip()}")
@@ -610,12 +623,96 @@ def print_kernel(k: dict) -> None:
 SLIM = ("name", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 
 
+def event_ms(fn, reps: int) -> float:
+    """Device ms per call of `fn`: CUDA events around `reps` eager calls
+    after one warm-up call, for calls of milliseconds of device work (which
+    hides their launches' host time) that `timed`'s graph capture cannot
+    hold: autograd's backward through a graph recorded outside the capture."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def attention_cases(dev) -> dict:
+    """The GTrXL segment attention's kernels at the cell's shape
+    (GTRXL_SEGMENT), each held against `attention_plain` through autograd on
+    the same inputs and timed against it: the forward's output, and the
+    backward's dqu, dqv, dk, dv and dpos for a random cotangent. The ring
+    has wrapped (t0 = 5,000); each env's episode began 0-999 steps before
+    t0 and ends every 1,000 steps, so slots past its start are empty and
+    some chunks hold a reset. Bounds from the benchmark's count
+    (`segment_attention_cost`), whatever implements the attention."""
+    from benchmark.metrics.gtrxl_segment_attention_roofline import segment_attention_cost
+    from surreal_tpu_torch.models.gtrxl import segment_mask
+    from surreal_tpu_torch.ops import gtrxl_attention_kernel as ra
+
+    B, T, m, H, D = GTRXL_SEGMENT
+    t0 = 5000
+    g = torch.Generator(device=dev).manual_seed(0)
+    f = lambda *shape: torch.randn(*shape, device=dev, generator=g)  # noqa: E731
+    kv = f(B, m + T, 2 * H * D)  # k and v as the segment's views of one projection
+    k, v = (x.reshape(B, m + T, H, D) for x in kv.chunk(2, -1))
+    leaves = [x.detach().requires_grad_() for x in (f(B, T, H, D), f(B, T, H, D), k, v,
+                                                      f(m + 1, H, D))]
+    dout = f(B, T, H, D)
+    age = torch.randint(0, 1000, (B,), device=dev, generator=g)  # steps of the episode at t0
+    done = (age[None, :] + torch.arange(T, device=dev)[:, None] + 1) % 1000 == 0  # (T, B)
+    episode = torch.cumsum(done.long(), 0) - done.long()
+    slot_dist = torch.remainder(t0 - 1 - torch.arange(m, device=dev), m) + 1
+    valid = slot_dist[None, :] <= age[:, None]
+    index, plain_index = ra.kernel_index(episode, valid, t0, m), segment_mask(episode, valid, t0, m)
+    out = ra.attention(*leaves, *index)
+    ref = ra.attention_plain(*leaves, *plain_index)
+    grads = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    ref_grads = torch.autograd.grad(ref, leaves, dout, retain_graph=True)
+    torch.cuda.synchronize()
+    names = ("out", "dqu", "dqv", "dk", "dv", "dpos")
+    pairs = list(zip(names, (out.detach(), *grads), (ref.detach(), *ref_grads)))
+    rel = {n: float((a - b).abs().max() / b.abs().max()) for n, a, b in pairs}
+    abs_err = {n: float((a - b).abs().max()) for n, a, b in pairs}
+
+    def forward(fn, idx):
+        with torch.no_grad():
+            fn(*leaves, *idx)
+
+    f_moved, f_ops, b_moved, b_ops = segment_attention_cost(
+        {"width": H * D, "heads": H, "memory": m}, B, T)
+    cases = {}
+    for name, outputs, moved, ops, kernel, plain in (
+            (ATTENTION_KERNELS[0], names[:1], f_moved, f_ops,
+             lambda: forward(ra.attention, index), lambda: forward(ra.attention_plain, plain_index)),
+            (ATTENTION_KERNELS[1], names[1:], b_moved, b_ops,
+             lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True),
+             lambda: torch.autograd.grad(ref, leaves, dout, retain_graph=True))):
+        ms, plain_ms = event_ms(kernel, 10), event_ms(plain, 3)
+        bound_ms, bound_by = bound(moved, ops)
+        cases[name] = dict(
+            name=name, route="cuda", source="surreal_tpu_torch/ops/csrc/gtrxl_attention.cu",
+            replaces=None, max_abs_err=max(abs_err[n] for n in outputs),
+            max_rel_err={n: rel[n] for n in outputs}, tol=TOL_ATTENTION, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            bytes=moved, call_ms=ms, plain_call_ms=plain_ms, shape=[B, H, T, m + T, D])
+        print(f"kernel {name} at (B, H, T, m + T, d_head) = {(B, H, T, m + T, D)}: max |kernel - "
+              f"plain| / max |plain| {json.dumps({n: rel[n] for n in outputs})} (tol "
+              f"{TOL_ATTENTION:.0e}); device time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+              f"bound {bound_ms:.3f} ms by {bound_by} ({ops} operations, {moved} bytes)")
+        if not max(rel[n] for n in outputs) <= TOL_ATTENTION:
+            fail(f"kernel {name} disagrees with attention_plain: {rel}")
+    return cases
+
+
 def phase_kernels(dev):
     """Each kernel at the cheetah path's shapes (the kernels line's entry),
     at the finger-spin path's, at the CLI cartpole path's and, for the loss,
     at the pixel PPO and GTrXL paths': GAE at (T, B) = (128, 256) and
     (128, 128), the loss at N = 4096 rows with A = 6, 2 and 1, at N = 2048
-    with A = 6 and at N = 16,384 with A = 6."""
+    with A = 6 and at N = 16,384 with A = 6; and the GTrXL segment
+    attention's two kernels at the GTrXL cell's shape (`attention_cases`)."""
     from surreal_tpu_torch.ops import gae_kernel, ppo_loss_kernel as plk, returns
 
     rng = np.random.default_rng(0)
@@ -644,6 +741,7 @@ def phase_kernels(dev):
             k["at_gtrxl_shape"] = {f: gtrxl[name][f] for f in SLIM}
     gae_at_shapes("this checkout", returns, dev, GAE_SHAPES[1:])
     print_autograd_times("this checkout", loss_autograd_times(plk, batch, coefs))
+    out.update(attention_cases(dev))
     return out
 
 
@@ -730,6 +828,14 @@ def path_kernels() -> dict:
     from surreal_tpu_torch.ops import gae_kernel, ppo_loss_kernel as plk
 
     return {"gae": gae_kernel.GAE, "ppo_loss_fwd": plk.FWD, "ppo_loss_bwd": plk.BWD}
+
+
+def attention_kernels() -> dict:
+    """The GTrXL segment attention's launchers (`GTrXL.segment` alone
+    launches them)."""
+    from surreal_tpu_torch.ops import gtrxl_attention_kernel as ra
+
+    return dict(zip(ATTENTION_KERNELS, (ra.FWD, ra.BWD)))
 
 
 def phase_slice(dev):
@@ -1160,7 +1266,7 @@ def phase_lstm(dev):
 
 
 def phase_gtrxl(dev):
-    """GTrXL PPO at the published widths over 128 envs. Returns the three
+    """GTrXL PPO at the published widths over 128 envs. Returns the five
     kernels' launch counts as read after its last update (set to 0 before
     its first iteration)."""
     from surreal_tpu_torch.algos.ppo import PPOConfig
@@ -1171,7 +1277,7 @@ def phase_gtrxl(dev):
     torch.cuda.reset_peak_memory_stats()
     t = PPOTrainer("cheetah-run", cfg, num_envs=128, seed=0, device=dev, torso="gtrxl",
                    gtrxl=torso)
-    kernels = path_kernels()
+    kernels = {**path_kernels(), **attention_kernels()}
     for k in kernels.values():
         k.launches = 0
     t0 = time.perf_counter()
@@ -1191,9 +1297,12 @@ def phase_gtrxl(dev):
            "max_memory_allocated": torch.cuda.max_memory_allocated()}
     print(json.dumps(out))
     check_finite("gtrxl", m)
-    if launches != {"gae": 0, "ppo_loss_fwd": 64, "ppo_loss_bwd": 64}:
-        fail(f"2 GTrXL iterations launched {launches}, not the loss forward and backward 64 "
-             "times each and GAE never")
+    segments = 2 * cfg.epochs * cfg.num_minibatches  # minibatch steps in 2 iterations
+    want = {"gae": 0, "ppo_loss_fwd": segments, "ppo_loss_bwd": segments,
+            **dict.fromkeys(ATTENTION_KERNELS, torso["layers"] * segments)}
+    if launches != want:
+        fail(f"2 GTrXL iterations launched {launches}, not {want}: the loss forward and "
+             "backward once a minibatch step, the attention's once a layer, GAE never")
     if t.carry.t != 2 * cfg.horizon or not 0 < written <= 2 * cfg.horizon:
         fail(f"the GTrXL clock is {t.carry.t} and an env's memory holds {written} steps after "
              f"{2 * cfg.horizon}")
@@ -4896,31 +5005,35 @@ def main():
     for name, k in kernels.items():
         # every number is a reading: each path was driven with the counts at
         # 0 just before it and read just after its last update
-        by_path = {"ppo": launches[name], "ppo_lstm": lstm_launches[name],
-                   "ddpg": ddpg_launches[name], "ppo_finger": finger_launches[name],
-                   "cli_ppo_cartpole": cli_launches[name],
-                   "ppo_pixel_cheetah": pixel_launches[name],
-                   "ddpg_pixel_ball_in_cup": pixel_ddpg_launches[name],
-                   "cli_ppo_pixel_cheetah": cli_pixel_launches[name],
-                   "ppo_bf16": bf16_launches[name], "ppo_overlap": overlap_launches[name],
-                   "ppo_gtrxl": gtrxl_launches[name],
-                   "cli_ppo_cartpole_bf16_overlap": cli_bf16_launches[name],
-                   "ppo_instance": instance_launches[name],
-                   # None: gymnasium is missing, so the path was not driven
-                   "ppo_gym": None if gym_launches is None else gym_launches[name],
-                   # the data axis, per rank (each rank counts in its own process)
-                   **{path: n[name] for path, n in dp_launches.items()},
-                   "ppo_dp1_nccl_cheetah": nccl_launches[name],
-                   # None: the CLI's ranks are its own processes, whose counts
-                   # this script does not read (phase 34 checks the run itself)
-                   "cli_ppo_cartpole_dp2": None,
-                   # the model and time axes and ZeRO, per rank (35-37); the dry
-                   # run's and the CLI's ranks are processes of their own (38, 39)
-                   **{path: n[name] for path, n in axes_launches.items()},
-                   "dryrun_multichip_2": None, "cli_ppo_cartpole_axes": None,
-                   # a checkpoint resumed under another layout (40): in this
-                   # process, and summed over its 2 ranks
-                   **{path: n[name] for path, n in resume_launches.items()}}
+        if name in ATTENTION_KERNELS:
+            # GTrXL.segment alone launches them: phase 41 is the one path here
+            by_path = {"ppo_gtrxl": gtrxl_launches[name]}
+        else:
+            by_path = {"ppo": launches[name], "ppo_lstm": lstm_launches[name],
+                       "ddpg": ddpg_launches[name], "ppo_finger": finger_launches[name],
+                       "cli_ppo_cartpole": cli_launches[name],
+                       "ppo_pixel_cheetah": pixel_launches[name],
+                       "ddpg_pixel_ball_in_cup": pixel_ddpg_launches[name],
+                       "cli_ppo_pixel_cheetah": cli_pixel_launches[name],
+                       "ppo_bf16": bf16_launches[name], "ppo_overlap": overlap_launches[name],
+                       "ppo_gtrxl": gtrxl_launches[name],
+                       "cli_ppo_cartpole_bf16_overlap": cli_bf16_launches[name],
+                       "ppo_instance": instance_launches[name],
+                       # None: gymnasium is missing, so the path was not driven
+                       "ppo_gym": None if gym_launches is None else gym_launches[name],
+                       # the data axis, per rank (each rank counts in its own process)
+                       **{path: n[name] for path, n in dp_launches.items()},
+                       "ppo_dp1_nccl_cheetah": nccl_launches[name],
+                       # None: the CLI's ranks are its own processes, whose counts
+                       # this script does not read (phase 34 checks the run itself)
+                       "cli_ppo_cartpole_dp2": None,
+                       # the model and time axes and ZeRO, per rank (35-37); the dry
+                       # run's and the CLI's ranks are processes of their own (38, 39)
+                       **{path: n[name] for path, n in axes_launches.items()},
+                       "dryrun_multichip_2": None, "cli_ppo_cartpole_axes": None,
+                       # a checkpoint resumed under another layout (40): in this
+                       # process, and summed over its 2 ranks
+                       **{path: n[name] for path, n in resume_launches.items()}}
         k["launches"] = sum(v for v in by_path.values() if v is not None)
         k["launches_by_path"] = by_path
         for extra in ("tol", "bytes", "call_ms", "plain_call_ms"):

@@ -62,7 +62,8 @@ def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     own forward, which keeps this arithmetic."""
     if x.dtype == torch.float32 or not isinstance(layer, nn.Linear):
         return layer(x)
-    return x @ layer.weight.to(x.dtype).T + layer.bias.to(x.dtype)
+    y = x @ layer.weight.to(x.dtype).T
+    return y if layer.bias is None else y + layer.bias.to(x.dtype)
 
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,8 @@ Entry points:
 - `segment(x_seq, memory, valid, done, t0)`: a chunk of T positions over the
   memory as it stood at the chunk's start, causal and masked, with
   gradients into the weights; it computes what T calls of `step` compute.
+  Its attention is one CUDA kernel each way for CUDA float32 at head width
+  32 (`ops/gtrxl_attention_kernel.py`), torch ops otherwise.
 
 `compute_dtype` is the torso's, as the other blocks': parameters stay
 float32, inputs and weights are cast (`blocks.linear`, `blocks.layer_norm`),
@@ -48,6 +50,7 @@ import torch
 from torch import nn
 
 from surreal_tpu_torch.models.blocks import layer_norm, lecun_normal_, linear
+from surreal_tpu_torch.ops import gtrxl_attention_kernel as rel_attention
 from surreal_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
@@ -69,6 +72,24 @@ def slot_distances(t: int, memory: int, device=None) -> Tensor:
     slot, ((t - j - 1) mod m) + 1, in 1..m."""
     j = torch.arange(memory, device=device)
     return torch.remainder(t - 1 - j, memory) + 1
+
+
+def segment_mask(episode: Tensor, valid: Tensor, t0: int, m: int) -> tuple[Tensor, Tensor]:
+    """`segment`'s pairs for `attention_plain`: each pair's clamped distance
+    (T, m + T) and visibility (B, T, m + T), keys in storage order (ring
+    slots 0..m-1, then the chunk's T steps). episode (T, B) counts each
+    position's episode from the chunk's start; valid (B, m) the slots'
+    validity at t0."""
+    T, dev = episode.shape[0], episode.device
+    s = torch.arange(T, device=dev)
+    mem_dist = slot_distances(t0, m, dev)[None, :] + s[:, None]  # (T, m)
+    own_dist = s[:, None] - s[None, :]  # (T, T)
+    dist = torch.cat([mem_dist, own_dist], -1).clamp(0, m)  # (T, m + T)
+    in_window = torch.cat([mem_dist <= m, (own_dist >= 0) & (own_dist <= m)], -1)
+    same = episode.T[:, :, None] == episode.T[:, None, :]  # (B, T, T)
+    first = (episode.T == 0)[:, :, None] & valid[:, None, :]  # (B, T, m)
+    mask = torch.cat([first, same], -1) & in_window  # (B, T, m + T)
+    return dist, mask
 
 
 class Gate(nn.Module):
@@ -253,16 +274,13 @@ class GTrXL(nn.Module):
             m, dev = self.memory, x_seq.device
             # the episode each position belongs to, counted from the chunk's start
             episode = torch.cumsum(done.to(torch.int64), 0) - done.to(torch.int64)  # (T, B)
-            s = torch.arange(T, device=dev)
-            mem_dist = slot_distances(t0, m, dev)[None, :] + s[:, None]  # (T, m)
-            own_dist = s[:, None] - s[None, :]  # (T, T)
-            dist = torch.cat([mem_dist, own_dist], -1).clamp(0, m)  # (T, m + T)
-            in_window = torch.cat([mem_dist <= m, (own_dist >= 0) & (own_dist <= m)], -1)
-            same = episode.T[:, :, None] == episode.T[:, None, :]  # (B, T, T)
-            first = (episode.T == 0)[:, :, None] & valid[:, None, :]  # (B, T, m)
-            mask = torch.cat([first, same], -1) & in_window  # (B, T, m + T)
             table = self._table(dev)
             e = linear(self.embed, x_seq.to(self.compute_dtype)).transpose(0, 1)  # (B, T, d)
+            fused = rel_attention.fused(e, self.head_dim)
+            if fused:
+                index = rel_attention.kernel_index(episode, valid, t0, m)
+            else:
+                dist, mask = segment_mask(episode, valid, t0, m)
             memory = memory.detach()
             for i, layer in enumerate(self.layers):
                 xn = layer_norm(layer.ln1, e)
@@ -271,12 +289,9 @@ class GTrXL(nn.Module):
                 pos = layer.positions(table)  # (m + 1, H, dh)
                 with span("gtrxl.attention"):
                     qu, qv = q + layer.u.to(q.dtype), q + layer.v.to(q.dtype)
-                    content = torch.einsum("bthd,bjhd->bhtj", qu, k)
-                    rel = torch.einsum("bthd,rhd->bhtr", qv, pos)
-                    rel = torch.gather(rel, -1, dist.expand(*rel.shape[:2], *dist.shape))
-                    scores = (content + rel).to(torch.float32) / math.sqrt(self.head_dim)
-                    scores = scores.masked_fill(~mask[:, None], float("-inf"))
-                    probs = torch.softmax(scores, -1).to(q.dtype)
-                    att = torch.einsum("bhtj,bjhd->bthd", probs, v)
+                    if fused:
+                        att = rel_attention.attention(qu, qv, k, v, pos, *index)
+                    else:
+                        att = rel_attention.attention_plain(qu, qv, k, v, pos, dist, mask)
                 e = layer.finish(e, att.reshape(B, T, self.width))
             return e.transpose(0, 1)
